@@ -1,0 +1,196 @@
+"""Backbone CNNs with five feature taps, NCHW.
+
+Counterpart of ``rsis_tpu/models/backbones.py`` (``ResNetTaps``,
+``BottleneckBlock``, ``BasicBlock``, ``VGG16Taps``, ``TinyTaps``). Every
+trunk returns the five feature scales (x5, x4, x3, x2, x1), coarsest
+first. Module and parameter names follow torchvision, so a torchvision or
+reference ``base.*`` state_dict loads as it is and
+``rsis_tpu/models/torch_import.py`` reads this package's state_dicts.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=1e-5)
+
+
+class Bottleneck(nn.Module):
+    """torchvision bottleneck: 1x1 -> 3x3(stride) -> 1x1 (x4)."""
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = _bn(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = _bn(planes * 4)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+            _bn(planes * 4)) if downsample else None)
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return self.relu(out + identity)
+
+
+class BasicBlock(nn.Module):
+    """torchvision basic block: 3x3(stride) -> 3x3."""
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = _bn(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+            _bn(planes)) if downsample else None)
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return self.relu(out + identity)
+
+
+class ResNetTaps(nn.Module):
+    """ResNet trunk returning (x5, x4, x3, x2, x1), coarsest first."""
+
+    def __init__(self, stage_sizes: Sequence[int], bottleneck: bool = True):
+        super().__init__()
+        block = Bottleneck if bottleneck else BasicBlock
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = _bn(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        inplanes, planes = 64, 64
+        for stage, n_blocks in enumerate(stage_sizes):
+            stride = 1 if stage == 0 else 2
+            blocks = []
+            for b in range(n_blocks):
+                first = b == 0
+                need_ds = first and (stride != 1
+                                     or inplanes != planes * block.expansion)
+                blocks.append(block(inplanes, planes,
+                                    stride=stride if first else 1,
+                                    downsample=need_ds))
+                inplanes = planes * block.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+            planes *= 2
+
+    def forward(self, x):
+        x1 = self.relu(self.bn1(self.conv1(x)))
+        x2 = self.layer1(self.maxpool(x1))
+        x3 = self.layer2(x2)
+        x4 = self.layer3(x3)
+        x5 = self.layer4(x4)
+        return x5, x4, x3, x2, x1
+
+
+def resnet34():
+    return ResNetTaps((3, 4, 6, 3), bottleneck=False)
+
+
+def resnet50():
+    return ResNetTaps((3, 4, 6, 3), bottleneck=True)
+
+
+def resnet101():
+    return ResNetTaps((3, 4, 23, 3), bottleneck=True)
+
+
+class TinyTaps(nn.Module):
+    """Minimal five-scale trunk for tests (not part of the reference
+    surface): five stride-2 3x3 convs with bias, x1 /2 ... x5 /32."""
+    widths = (16, 24, 32, 48, 64)
+
+    def __init__(self):
+        super().__init__()
+        cin = 3
+        for i, wd in enumerate(self.widths):
+            setattr(self, f"conv{i}", nn.Conv2d(cin, wd, 3, stride=2,
+                                                padding=1))
+            cin = wd
+
+    def forward(self, x):
+        taps = []
+        for i in range(len(self.widths)):
+            x = torch.relu(getattr(self, f"conv{i}")(x))
+            taps.append(x)
+        x1, x2, x3, x4, x5 = taps
+        return x5, x4, x3, x2, x1
+
+
+def tiny():
+    return TinyTaps()
+
+
+_VGG16_PLAN = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+               512, 512, 512, "M", 512, 512, 512, "M")
+
+
+class VGG16Taps(nn.Module):
+    """VGG-16 ``features`` trunk (torchvision indices); taps after each
+    max-pool (x1..x5)."""
+
+    def __init__(self):
+        super().__init__()
+        layers = []
+        cin = 3
+        for item in _VGG16_PLAN:
+            if item == "M":
+                layers.append(nn.MaxPool2d(2, stride=2))
+            else:
+                layers += [nn.Conv2d(cin, item, 3, padding=1),
+                           nn.ReLU(inplace=True)]
+                cin = item
+        self.features = nn.Sequential(*layers)
+
+    def forward(self, x):
+        taps = []
+        for layer in self.features:
+            x = layer(x)
+            if isinstance(layer, nn.MaxPool2d):
+                taps.append(x)
+        x1, x2, x3, x4, x5 = taps
+        return x5, x4, x3, x2, x1
+
+
+def vgg16():
+    return VGG16Taps()
+
+
+# channel widths of (x5..x1) per backbone
+SKIP_DIMS = {
+    "tiny": (64, 48, 32, 24, 16),
+    "resnet50": (2048, 1024, 512, 256, 64),
+    "resnet101": (2048, 1024, 512, 256, 64),
+    "resnet34": (512, 256, 128, 64, 64),
+    "vgg16": (512, 512, 256, 128, 64),
+}
+
+BACKBONES = {
+    "tiny": tiny,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnet101": resnet101,
+    "vgg16": vgg16,
+}

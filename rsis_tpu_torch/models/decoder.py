@@ -1,0 +1,114 @@
+"""RSIS recurrent decoder, one step: five ConvLSTM cells and the heads.
+
+Counterpart of ``rsis_tpu/models/decoder.py`` (``decoder_widths``,
+``init_carry``, ``RSISDecoder``). Each cell's hidden state is upsampled
+(align_corners) to the next skip scale and fused with that skip
+(concat/sum/mul/none); the finest state is upsampled 2x and projected to
+one channel of mask logits; the global max of every cell's state feeds
+``fc_class`` and ``fc_stop``. Inference only: no dropout. This is the
+plain decode and the only path for skip_mode "mul"; the other modes go
+through ``models/rowmajor_decoder.py`` and its kernels. Parameters stay
+fp32 and are cast to the input's dtype at use, as the flax modules do.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.upsample import upsample_bilinear_align_corners
+from .clstm import ConvLSTMCell
+
+SKIP_MODES = ("concat", "sum", "mul", "none")
+
+
+def decoder_widths(hidden_size: int) -> Tuple[int, ...]:
+    """ConvLSTM hidden widths per scale, halving as resolution doubles."""
+    h = hidden_size
+    return (h, h // 2, h // 4, h // 8, h // 16)
+
+
+def skip_widths(hidden_size: int) -> Tuple[int, ...]:
+    """Encoder skip widths (x5..x1) for a hidden size."""
+    h = hidden_size
+    return (h, h, h // 2, h // 4, h // 8)
+
+
+def init_carry(skips: Sequence[torch.Tensor], hidden_size: int):
+    """Zero (h, c) pyramid (NCHW) on the skips' device and dtype."""
+    return tuple((s.new_zeros((s.shape[0], w) + tuple(s.shape[2:])),) * 2
+                 for s, w in zip(skips, decoder_widths(hidden_size)))
+
+
+def _linear(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
+    return F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))
+
+
+class RSISDecoder(nn.Module):
+    def __init__(self, hidden_size: int = 128, num_classes: int = 21,
+                 kernel_size: int = 3, skip_mode: str = "concat"):
+        super().__init__()
+        if skip_mode not in SKIP_MODES:
+            raise ValueError(f"unsupported skip_mode {skip_mode!r}")
+        self.hidden_size = hidden_size
+        self.skip_mode = skip_mode
+        widths = decoder_widths(hidden_size)
+        skips = skip_widths(hidden_size)
+        cells = []
+        for i, width in enumerate(widths):
+            if i == 0:
+                cin = skips[0]
+            elif skip_mode == "concat":
+                cin = widths[i - 1] + skips[i]
+            else:
+                cin = widths[i - 1]
+            cells.append(ConvLSTMCell(cin, width, kernel_size))
+        self.clstm_list = nn.ModuleList(cells)
+        self.conv_out = nn.Conv2d(widths[-1], 1, kernel_size,
+                                  padding=(kernel_size - 1) // 2)
+        self.fc_class = nn.Linear(sum(widths), num_classes)
+        self.fc_stop = nn.Linear(sum(widths), 1)
+
+    def forward(self, skips: Sequence[torch.Tensor], carry=None):
+        """One decode step.
+
+        skips: 5 skip features (x5..x1, NCHW); carry: the state pyramid
+        of the previous step, or None for zeros. Returns
+        ((mask_logits (B, 1, 2H1, 2W1), class_probs (B, K),
+        stop_logits (B, 1)), new_carry)."""
+        if carry is None:
+            carry = init_carry(skips, self.hidden_size)
+        clstm_in = skips[0]
+        new_carry, side_feats = [], []
+        n = len(self.clstm_list)
+        for i, cell in enumerate(self.clstm_list):
+            hidden, state = cell(clstm_in, carry[i])
+            new_carry.append(state)
+            side_feats.append(hidden.amax(dim=(2, 3)))
+            if i + 1 < n:
+                nxt = skips[i + 1]
+                up = upsample_bilinear_align_corners(hidden, nxt.shape[2],
+                                                     nxt.shape[3])
+                if self.skip_mode == "concat":
+                    clstm_in = torch.cat([up, nxt], dim=1)
+                elif self.skip_mode == "sum":
+                    clstm_in = up + nxt
+                elif self.skip_mode == "mul":
+                    clstm_in = up * nxt
+                else:
+                    clstm_in = up
+            else:
+                clstm_in = upsample_bilinear_align_corners(
+                    hidden, hidden.shape[2] * 2, hidden.shape[3] * 2)
+        dt = clstm_in.dtype
+        mask_logits = F.conv2d(clstm_in, self.conv_out.weight.to(dt),
+                               self.conv_out.bias.to(dt),
+                               padding=self.conv_out.padding)
+        feats = torch.cat(side_feats, dim=-1)
+        class_probs = torch.softmax(
+            _linear(feats, self.fc_class), dim=-1)
+        stop_logits = _linear(feats, self.fc_stop)
+        return (mask_logits, class_probs, stop_logits), tuple(new_carry)

@@ -1,0 +1,80 @@
+"""Model assembly, the plain decode loop and the inference forward.
+
+Counterpart of ``rsis_tpu/models/rsis.py`` (``compute_dtype``,
+``build_models``, ``decode_sequence``, ``forward``). The encoder runs once;
+the decoder runs exactly T steps (no early stop) in a Python loop; masks
+are upsampled to the input size and the mask and stop sigmoids applied.
+Skip modes concat/sum/none with 3x3 convolutions decode through the
+kernels (``models/rowmajor_decoder.py``); ``mul`` is not
+channel-separable and, like other kernel sizes, takes the plain decode.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import Config
+from ..ops.upsample import upsample_bilinear_align_corners
+from .decoder import RSISDecoder
+from .encoder import FeatureExtractor
+from .rowmajor_decoder import CHANNEL_SEPARABLE, decode_sequence_rowmajor
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def build_models(cfg: Config) -> Tuple[FeatureExtractor, RSISDecoder]:
+    """Fresh (encoder, decoder) modules in eval mode, fp32 parameters on
+    the CPU, initialised from the global torch seed."""
+    encoder = FeatureExtractor(base_model=cfg.base_model,
+                               hidden_size=cfg.hidden_size,
+                               kernel_size=cfg.kernel_size)
+    decoder = RSISDecoder(hidden_size=cfg.hidden_size,
+                          num_classes=cfg.num_classes,
+                          kernel_size=cfg.kernel_size,
+                          skip_mode=cfg.skip_mode)
+    return encoder.eval(), decoder.eval()
+
+
+def decode_sequence(decoder: RSISDecoder, skips, T: int, carry=None):
+    """Unroll the plain decoder T steps.
+
+    Returns (masks (B, T, 2H, 2W) logits, class_probs (B, T, K),
+    stop_logits (B, T, 1), final_carry)."""
+    masks, clss, stops = [], [], []
+    for _ in range(T):
+        (mask, cls, stop), carry = decoder(skips, carry)
+        masks.append(mask[:, 0])
+        clss.append(cls)
+        stops.append(stop)
+    return (torch.stack(masks, dim=1), torch.stack(clss, dim=1),
+            torch.stack(stops, dim=1), carry)
+
+
+@torch.inference_mode()
+def forward(cfg: Config, encoder: FeatureExtractor, decoder: RSISDecoder,
+            x: torch.Tensor, T: int | None = None, plain: bool = False):
+    """Inference forward on an NCHW image batch.
+
+    The encoder runs in the dtype of its parameters on x cast to it; the
+    decoder computes in ``compute_dtype(cfg)``. plain=True replaces the two
+    kernels by their plain versions (the oracle they are held against on
+    the card). Returns (sigmoid masks (B, T, H, W), class_probs (B, T, K),
+    sigmoid stops (B, T, 1))."""
+    T = T if T is not None else cfg.maxseqlen
+    dtype = compute_dtype(cfg)
+    enc_dtype = next(encoder.parameters()).dtype
+    skips = tuple(s.to(dtype) for s in encoder(x.to(enc_dtype)))
+    # the kernels pack 3x3 gate convolutions
+    if cfg.skip_mode in CHANNEL_SEPARABLE and cfg.kernel_size == 3:
+        masks, clss, stops = decode_sequence_rowmajor(
+            decoder, skips, T, cfg.skip_mode, dtype=dtype, plain=plain)
+    else:
+        masks, clss, stops, _ = decode_sequence(decoder, skips, T)
+    h, w = x.shape[2], x.shape[3]
+    if tuple(masks.shape[-2:]) != (h, w):
+        masks = upsample_bilinear_align_corners(masks, h, w)
+    return torch.sigmoid(masks), clss, torch.sigmoid(stops)

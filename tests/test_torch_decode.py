@@ -1,0 +1,91 @@
+"""The port's decode loops against the JAX package's on shared weights.
+
+- models/rowmajor_decoder.decode_sequence_rowmajor (the kernel decode, on
+  the CPU through the kernels' plain versions) against JAX
+  decode_sequence_rowmajor with its Pallas kernels in interpret mode, for
+  the channel-separable skip modes;
+- models/rsis.decode_sequence (the plain decode, the only path for "mul")
+  against JAX rsis.decode_sequence.
+
+Weights come from JAX init and pass through models/weights.py. fp32, T=3;
+atol 1e-4 (as tests/test_rowmajor_decoder.py) covers fp32 summation order
+compounded over 5 cells x 3 steps."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rsis_tpu.models.rowmajor_decoder import (
+    decode_sequence_rowmajor as jax_decode_rowmajor)
+from rsis_tpu.models.rsis import decode_sequence as jax_decode_sequence
+from rsis_tpu_torch.models import rowmajor_decoder as trm
+from rsis_tpu_torch.models.decoder import RSISDecoder
+from rsis_tpu_torch.models.rsis import decode_sequence
+from rsis_tpu_torch.models.weights import decoder_state_dict
+from tests.test_fast_decoder import make_setup
+
+ATOL = 1e-4
+T = 3
+
+
+def _port_setup(skip_mode):
+    dec, params, skips = make_setup(skip_mode=skip_mode, b=1, scale=2)
+    decoder = RSISDecoder(hidden_size=dec.hidden_size, num_classes=4,
+                          skip_mode=skip_mode)
+    decoder.load_state_dict(
+        decoder_state_dict(jax.tree.map(np.asarray, params)))
+    t_skips = [torch.from_numpy(np.array(s)).permute(0, 3, 1, 2)
+               for s in skips]
+    return dec, params, skips, decoder.eval(), t_skips
+
+
+@pytest.mark.parametrize("skip_mode", ["concat", "sum", "none"])
+def test_rowmajor_decode_matches_jax(skip_mode):
+    dec, params, skips, decoder, t_skips = _port_setup(skip_mode)
+    want = jax_decode_rowmajor(params, skips, T, dec.hidden_size, skip_mode,
+                               dtype=jnp.float32, interpret=True)
+    with torch.inference_mode():
+        got = trm.decode_sequence_rowmajor(decoder, t_skips, T, skip_mode,
+                                           dtype=torch.float32)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+def test_plain_decode_matches_jax_mul():
+    dec, params, skips, decoder, t_skips = _port_setup("mul")
+    m_w, c_w, s_w, carry_w = jax_decode_sequence(dec, params, skips, T)
+    with torch.inference_mode():
+        m_g, c_g, s_g, carry_g = decode_sequence(decoder, t_skips, T)
+    np.testing.assert_allclose(m_g.numpy(), np.asarray(m_w)[..., 0],
+                               atol=ATOL)
+    np.testing.assert_allclose(c_g.numpy(), np.asarray(c_w), atol=ATOL)
+    np.testing.assert_allclose(s_g.numpy(), np.asarray(s_w), atol=ATOL)
+    for (hg, cg), (hw, cw) in zip(carry_g, carry_w):
+        np.testing.assert_allclose(hg.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(hw), atol=ATOL)
+        np.testing.assert_allclose(cg.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(cw), atol=ATOL)
+
+
+def test_rowmajor_rejects_mul():
+    _, _, _, decoder, t_skips = _port_setup("mul")
+    with pytest.raises(ValueError):
+        trm.decode_sequence_rowmajor(decoder, t_skips, 1, "mul",
+                                     dtype=torch.float32)
+
+
+def test_upsample_pad_matches_unpadded():
+    """pad=True is the unpadded upsample with a zero halo ring (equal up to
+    fp32 summation order: the products have other shapes)."""
+    x = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(2, 3, 4, 5)).astype(np.float32))
+    plain = trm._upsample_rowmajor(x, 6, 10)
+    padded = trm._upsample_rowmajor(x, 6, 10, pad=True)
+    assert tuple(padded.shape) == (2, 8, 4, 12)
+    np.testing.assert_allclose(padded[:, 1:-1, :, 1:-1].numpy(),
+                               plain.numpy(), atol=1e-6)
+    assert padded[:, [0, -1]].abs().max() == 0
+    assert padded[..., [0, -1]].abs().max() == 0

@@ -1,0 +1,98 @@
+"""Rules the PyTorch port keeps:
+
+- nothing in rsis_tpu_torch/, and not chip_smoke.py, imports jax, flax or
+  rsis_tpu: the port keeps its own copies of what it needs;
+- an entry point asked for no device runs on CUDA, and raises where there
+  is none, instead of running on the CPU;
+- importing the kernel modules needs no nvcc and compiles nothing: kernels
+  build on their first CUDA use;
+- a kernel wrapper given a tensor that is neither on the CPU nor on a CUDA
+  device raises instead of falling back to its plain version."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rsis_tpu"}
+
+
+def _port_files():
+    files = sorted((ROOT / "rsis_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
+                                            & FORBIDDEN)
+           for p in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_make_forward_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is usable")
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.evals.forward import make_forward
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_forward(Config(base_model="tiny", hidden_size=16))
+
+
+def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started at import')\n"
+        "subprocess.Popen = refuse\n"
+        "import rsis_tpu_torch.ops._build as b\n"
+        "import rsis_tpu_torch.ops.fused_cell, rsis_tpu_torch.ops.mask_head\n"
+        "import rsis_tpu_torch.models.rsis, rsis_tpu_torch.evals.forward\n"
+        "assert b.load.cache_info().currsize == 0\n"
+        "try:\n"
+        "    b._nvcc()\n"
+        "except RuntimeError:\n"
+        "    print('no nvcc')\n")
+    env = {"PATH": os.path.dirname(sys.executable),
+           "CUDA_HOME": str(tmp_path / "no-cuda"),
+           "PYTHONPATH": str(ROOT), "HOME": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "no nvcc" in out.stdout
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor
+    from rsis_tpu_torch.ops.mask_head import mask_head_fused_kernel
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_cell_rowmajor(torch.empty(1, 2, 4, 3, **meta), None,
+                            torch.empty(1, 2, 4, 3, **meta),
+                            torch.empty(1, 2, 16, 3, **meta),
+                            torch.empty(16, 36, **meta), cx=0, ch=4)
+    with pytest.raises(ValueError, match="no kernel"):
+        mask_head_fused_kernel(torch.empty(1, 2, 4, 3, **meta),
+                               torch.empty(1, 4, 3, 3, **meta),
+                               torch.empty(1, **meta))
