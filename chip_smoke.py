@@ -3,26 +3,42 @@
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the build of every kernel in ``rsis_tpu_torch/csrc`` (one nvcc per
-     source, all started together);
+     and the build of all six kernels in ``rsis_tpu_torch/csrc`` (one nvcc
+     per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, in float32 (TF32 off) and bfloat16;
-  3. the main path: ``make_forward`` at full width (resnet101, hidden 128,
-     9 classes, concat, 512x1024, bfloat16, random weights from --seed)
-     answering a few batches, with every kernel's launch count read from
-     that run and the outputs held against the port's plain path on the
-     card (and, in float32 at T=2, against a tighter tolerance);
-  4. timings after warm-up: encoder, decode step and images per second
-     from CUDA events around whole calls; each kernel's device time
-     (CUDA-graph replay) against its plain version's and its bound;
-     with --profile, device time by operation for one forward.
+     shapes its main path gives it, in float32 (TF32 off) and bfloat16:
+     the forward kernels K1 and K2 at the inference geometry, the backward
+     kernels K4, K5 and K3 at the train step's five cells, the LAP
+     matcher K6 on random and tie-heavy costs, and the cell's whole
+     backward (K4 + K5 + K3) against autograd through the plain cell;
+  3. the inference path: ``make_forward`` at full width (resnet101, hidden
+     128, 9 classes, concat, 512x1024, bfloat16, random weights from
+     --seed) answering a few batches, with K1's and K2's launch counts
+     read from that run and the outputs held against the port's plain path
+     on the card (and, in float32 at T=2, against a tighter tolerance);
+  4. the training path: ``make_train_step`` at full width (the same model,
+     256x512, gt_maxseqlen 20, bfloat16, no augmentation, all three step
+     flags on) on one synthetic uint8 wire batch: a warm-up step, then
+     three timed steps with every kernel's launch count read from them and
+     the loss falling; one step held against the plain path on the card
+     (bfloat16 and float32 at T=2: the loss and every gradient);
+  5. timings after warm-up: encoder, decode step, images per second and
+     train ms per step from CUDA events or host clocks around whole,
+     synchronised calls; each kernel's device time (CUDA-graph replay)
+     against its plain version's, its bound and, where one exists, the
+     PyTorch library call for the same function; with --profile, device
+     time by operation and the idle share of one forward and one step.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a CUDA device or without the ``rsis_tpu_torch`` package beside it.
 
 Usage: python3 chip_smoke.py [--batch 4] [--steps 10] [--batches 3]
-                             [--seed 0] [--out FILE] [--profile]
+                             [--train-batch 8] [--train-steps 5]
+                             [--seed 0] [--out FILE]
+                             [--profile]
+(--batch 32 --steps 20 --batches 1 is the decode bench geometry,
+--train-batch 32 --train-steps 20 the train bench geometry.)
 """
 
 from __future__ import annotations
@@ -41,6 +57,17 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.float32: 67e12}     # fp32 outside the tensor cores
 BF16_ULP = 2.0 ** -7               # bf16 spacing relative to magnitude
 FP32_TOL = 1e-4                    # kernel vs plain, both fp32 arithmetic
+CELL_BWD_BF16_ULPS = 2             # FusedCellFunction bf16 vs autograd
+# the bf16 train step's gradients against the plain path's, in bf16 ulps
+# of each tensor's largest magnitude. Read on an H100 at B=8, T=5 and
+# B=32, T=20: the decoder group (the kernels' own gradients, the skip
+# convolutions, the heads) at most 0.79, the backbone 8.9-13.0 across
+# runs, always at its first BatchNorm's bias: a sum over every pixel of
+# the batch that nearly cancels, behind cuDNN's nondeterministic backward
+STEP_GRAD_BF16_ULPS = {"backbone": 32, "decoder": 3}
+STEP_LOSS_BF16_REL = 1e-3          # bf16 train step's loss vs plain
+TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
+TRAIN_ITERS = 3                    # timed train steps after the warm-up
 
 
 def log(*args) -> None:
@@ -95,9 +122,10 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / (3 * iters)
 
 
-def profile_forward(fn, out_dir) -> None:
+def profile_call(fn, out_dir, name: str) -> dict:
     """Device time by operation over one call of fn, and the device's busy
-    share of the call's wall time (torch.profiler)."""
+    share of the call's wall time (torch.profiler). Returns the idle share
+    and the device ms of the 25 busiest operations."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -115,13 +143,17 @@ def profile_forward(fn, out_dir) -> None:
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    log(f"profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
-        f"(idle share {1 - busy_ms / wall_ms:.3f})")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:25]:
+    idle = 1 - busy_ms / wall_ms
+    log(f"profile {name}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+        f"wall (idle share {idle:.3f})")
+    top = sorted(kernels, key=dev_us, reverse=True)[:25]
+    for e in top:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out_dir, "forward_trace.json"))
+        prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
+            "top": [[e.key, e.count, dev_us(e) / 1e3] for e in top]}
 
 
 def nbytes(*tensors) -> int:
@@ -174,6 +206,407 @@ def head_inputs(shape, dtype, gen):
     return hs, weight, bias
 
 
+def bwd_inputs(geom, b, dtype, gen):
+    """K1 operands plus the output cotangents dh, dc of one cell."""
+    ops = cell_inputs(geom, b, dtype, gen)
+    cot = [torch.randn(ops[0].shape, generator=gen, device="cuda").to(dtype)
+           for _ in range(2)]
+    return ops, cot
+
+
+def tol_for(dtype, want, fp32_tol=FP32_TOL) -> float:
+    """fp32: the stated tolerance; bf16: one bf16 ulp at the output's
+    largest magnitude (both sides sum in fp32 in another order, then round
+    once)."""
+    if dtype == torch.float32:
+        return fp32_tol
+    return BF16_ULP * want.float().abs().max().item()
+
+
+def check_backward_kernels(cell_geoms, b, gen) -> dict:
+    """K4, K5 and K3 against their plain versions at the train step's
+    shapes, fp32 and bf16. Returns the largest bf16 error of each."""
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    from rsis_tpu_torch.ops.conv3x3 import (conv3x3_rowmajor,
+                                            conv3x3_rowmajor_ref)
+    errs = {"k3": 0.0, "k4": 0.0, "k5": 0.0}
+    # the five cells, then widths that are not multiples of 8 (FMA loops)
+    geoms = [(g, b) for g in cell_geoms] + [((32, 64, 4, 12), 2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for geom, bb in geoms:
+            hh, ww, ch, cx = geom
+            ops, (dh, dc) = bwd_inputs(geom, bb, dtype, gen)
+            kw = {"cx": cx, "ch": ch}
+            got = fcv.cell_backward_dgates(*ops, dh, dc, **kw)
+            want = fcv.cell_backward_dgates_ref(*ops, dh, dc, **kw)
+            torch.cuda.synchronize()
+            for nm, g_, w_ in zip(("dg", "dc_prev"), got, want):
+                err = max_err(g_, w_)
+                check(f"K4 {geom} B={bb} {tag} {nm}", err, tol_for(dtype, w_))
+                if dtype == torch.bfloat16:
+                    errs["k4"] = max(errs["k4"], err)
+            dg = want[0]
+            got = fcv.weight_grad_rowmajor(ops[0], ops[1], dg, **kw)
+            want = fcv.weight_grad_ref(ops[0], ops[1], dg, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            # fp32: relative to max|dwt|, a sum of up to 1M products
+            scale = want.float().abs().max().item()
+            check(f"K5 {geom} B={bb} {tag}", err,
+                  tol_for(dtype, want, FP32_TOL * scale))
+            if dtype == torch.bfloat16:
+                errs["k5"] = max(errs["k5"], err)
+            wpack = fcv.conv_transpose_weights(ops[4], cx, ch,
+                                               "xh" if cx else "h")
+            ckw = {"cin": 4 * ch, "cout": cx + ch}
+            got = conv3x3_rowmajor(dg, wpack, **ckw)
+            want = conv3x3_rowmajor_ref(dg, wpack, **ckw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(f"K3 {geom} B={bb} {tag}", err, tol_for(dtype, want))
+            if dtype == torch.bfloat16:
+                errs["k3"] = max(errs["k3"], err)
+    return errs
+
+
+def lap_cases(gen, b=32, shapes=((5, 20), (20, 20))):
+    """(name, costs (B, nr, nc)) at the train step's matcher shapes:
+    random costs and tie-heavy ones, where the invalid (prediction, GT)
+    pairs cost exactly 10.0 as in the loss."""
+    cases = []
+    for nr, nc in shapes:
+        rnd = torch.rand(b, nr, nc, generator=gen, device="cuda")
+        cases.append((f"random ({b}, {nr}, {nc})", rnd))
+        valid_n = torch.randint(1, nc + 1, (b, 1), generator=gen,
+                                device="cuda")
+        sw = (torch.arange(nc, device="cuda")[None] < valid_n).float()
+        valid = sw[:, :nr, None] * sw[:, None, :]
+        coarse = torch.floor(rnd * 4) / 4    # ties among valid pairs too
+        cases.append((f"ties ({b}, {nr}, {nc})",
+                      (coarse * valid + (1 - valid) * 10.0).contiguous()))
+    return cases
+
+
+def assignment_cost(costs, row4col) -> torch.Tensor:
+    """Total cost of each problem's assignment, checking that it assigns
+    every row to exactly one column."""
+    b, nr, nc = costs.shape
+    r4c = row4col.long()
+    taken = r4c >= 0
+    if not torch.equal(taken.sum(1), torch.full((b,), nr, device=r4c.device)):
+        raise SystemExit("K6: an assignment leaves rows unassigned")
+    rows = torch.where(taken, r4c, torch.zeros_like(r4c))
+    hits = torch.zeros(b, nr, dtype=torch.long, device=r4c.device)
+    hits.scatter_add_(1, rows, taken.long())
+    if not torch.equal(hits, torch.ones_like(hits)):
+        raise SystemExit("K6: a row is assigned to several columns")
+    picked = torch.gather(costs, 1, rows[:, None, :])[:, 0]
+    return (picked * taken).sum(1)
+
+
+def check_lap(gen) -> float:
+    """K6 against its plain version: valid assignments of equal total cost
+    (1e-5 relative). Returns the largest total-cost difference."""
+    from rsis_tpu_torch.ops.lap import solve_lap_batch, solve_lap_batch_ref
+    worst = 0.0
+    for name, costs in lap_cases(gen):
+        got = assignment_cost(costs, solve_lap_batch(costs))
+        want = assignment_cost(costs, solve_lap_batch_ref(costs))
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        check(f"K6 {name} total cost", err,
+              1e-5 * want.abs().max().item())
+    return worst
+
+
+def check_cell_backward(cell_geoms, b, gen) -> float:
+    """FusedCellFunction's whole backward (K4, K5, K3) against autograd
+    through the plain cell, all five cotangents (the up-input's through its
+    zero-ring pad, as the decoder builds it), in fp32 and in bf16, where
+    the kernels take their tensor-core loops. Returns the largest bf16
+    error in bf16 ulps at the cotangent's largest magnitude."""
+    from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor_ref
+    from rsis_tpu_torch.ops.fused_cell_vjp import FusedCellFunction
+    F = torch.nn.functional
+    worst = 0.0
+    for geom, dtype in [(g, d) for d in (torch.float32, torch.bfloat16)
+                        for g in cell_geoms]:
+        hh, ww, ch, cx = geom
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        ops, (gh, gc) = bwd_inputs(geom, b, dtype, gen)
+        h_prev, x_pad, c_prev, s_term, wt = ops
+        x = x_pad[:, 1:-1, :, 1:-1].contiguous() if cx else None
+        grads = []
+        for fn in (lambda *a: FusedCellFunction.apply(*a, cx, ch),
+                   lambda *a: fused_cell_rowmajor_ref(*a, cx=cx, ch=ch)):
+            leaves = [t.detach().requires_grad_() if t is not None else None
+                      for t in (h_prev, x, c_prev, s_term, wt)]
+            xp = (F.pad(leaves[1], (1, 1, 0, 0, 1, 1)) if cx else None)
+            h, c = fn(leaves[0], xp, leaves[2], leaves[3], leaves[4])
+            torch.autograd.backward((h, c), (gh, gc))
+            grads.append([t.grad for t in leaves if t is not None])
+        names = [n for n, t in zip(("h_prev", "x", "c_prev", "s", "wt"),
+                                   (h_prev, x, c_prev, s_term, wt))
+                 if t is not None]
+        torch.cuda.synchronize()
+        for nm, got, want in zip(names, *grads):
+            err = max_err(got, want)
+            if dtype == torch.float32:
+                tol = FP32_TOL * max(1.0, want.abs().max().item())
+            else:
+                # the kernels round dg to bf16 before K5 and K3 read it,
+                # autograd through the plain cell keeps it in fp32; both
+                # round the cotangent once
+                ulp = BF16_ULP * want.float().abs().max().item()
+                tol = CELL_BWD_BF16_ULPS * ulp
+                worst = max(worst, err / ulp)
+            check(f"cell backward {geom} {tag} d{nm}", err, tol)
+    return worst
+
+
+def train_config(b: int, T: int, dtype: str = "bfloat16"):
+    from rsis_tpu_torch import Config
+    return Config(base_model="resnet101", hidden_size=128, num_classes=9,
+                  skip_mode="concat", maxseqlen=T, compute_dtype=dtype,
+                  imsize=TRAIN_HW[0], gt_maxseqlen=20, batch_size=b)
+
+
+def kernel_counters() -> dict:
+    """Each kernel wrapper of the train step (its launch count lives on the
+    function)."""
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    from rsis_tpu_torch.ops.conv3x3 import conv3x3_rowmajor
+    from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor
+    from rsis_tpu_torch.ops.lap import solve_lap_batch
+    from rsis_tpu_torch.ops.mask_head import mask_head_fused_kernel
+    return {"fused_cell_rowmajor": fused_cell_rowmajor,
+            "mask_head_fused_kernel": mask_head_fused_kernel,
+            "conv3x3_rowmajor": conv3x3_rowmajor,
+            "cell_backward_dgates": fcv.cell_backward_dgates,
+            "weight_grad_rowmajor": fcv.weight_grad_rowmajor,
+            "solve_lap_batch": solve_lap_batch}
+
+
+def train_phase(args, out_dir) -> dict:
+    """Phase 4: the full-width train step through the kernels, timed, its
+    launches counted, its loss falling, and one step held against the
+    plain path on the card."""
+    import numpy as np
+    from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
+    from rsis_tpu_torch.models.rsis import build_models
+    from rsis_tpu_torch.train import step as ts
+
+    b, T = args.train_batch, args.train_steps
+    hh, ww = TRAIN_HW
+    cfg = train_config(b, T)
+    torch.manual_seed(args.seed)
+    enc, dec = build_models(cfg)
+    weights = (enc.state_dict(), dec.state_dict())
+    del enc, dec
+    img, tgt = synthetic_wire_batch(np.random.default_rng(args.seed), b, hh,
+                                    ww, cfg.gt_maxseqlen, cfg.num_classes)
+    batch = (torch.from_numpy(img).cuda(), torch.from_numpy(tgt).cuda())
+    flags = ts.StepFlags(use_class_loss=1.0, use_stop_loss=1.0,
+                         update_encoder=1.0)
+    remat = ts._resolve_remat(cfg, T)
+    train_step, _ = ts.make_train_step(cfg, T=T, remat=remat)
+    state = ts.create_train_state(cfg, weights)
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, batch, flags)
+    loss0 = metrics[0].item()
+    log(f"train step warm-up: {time.perf_counter() - t0:.2f} s, loss "
+        f"{loss0:.5f}")
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        state, metrics = train_step(state, batch, flags)
+        losses.append(metrics[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_ITERS * 1e3
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [loss0] + [x.item() for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    img_s = b / (step_ms / 1e3)
+    log(f"train path: {TRAIN_ITERS} steps of B={b} at {hh}x{ww}, "
+        f"T={T}, bf16, remat {remat}, no augmentation: {step_ms:.3f} ms/step "
+        f"= {img_s:.2f} img/s (host clock around synchronised steps); peak "
+        f"{peak_gb:.2f} GB; losses {[round(x, 5) for x in losses]}; "
+        f"launches {launches}")
+    n, rep = TRAIN_ITERS, 2 if remat else 1
+    want = {"fused_cell_rowmajor": 5 * T * rep * n,
+            "mask_head_fused_kernel": T * rep * n,
+            "conv3x3_rowmajor": 5 * T * n, "cell_backward_dgates": 5 * T * n,
+            "weight_grad_rowmajor": 5 * T * n, "solve_lap_batch": n}
+    if launches != want:
+        raise SystemExit(f"train launch counts {launches} != expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"the train loss does not fall: {losses}")
+    profile = None
+    if args.profile:
+        profile = profile_call(lambda: train_step(state, batch, flags),
+                               out_dir, "train_step")
+    del state
+
+    # the same weights and batch through the plain path on the card
+    def loss_grads(cfg_, batch_, T_, plain):
+        st = ts.create_train_state(cfg_, weights)
+        total, _, grads = ts.loss_and_grads(cfg_, st, batch_, flags, T_,
+                                            plain=plain)
+        return total.item(), grads
+
+    def check_grads(tag, g_k, g_p, unit, limits):
+        """Every gradient tensor within limits[group] * unit(scale), scale
+        its largest magnitude, group "backbone" (encoder.base.*) or
+        "decoder" (the rest: skip convolutions, cells, heads); the floor
+        (1e-3 of the largest gradient of all) covers the skip
+        convolutions' biases, which feed BatchNorm: their true gradient is
+        zero and both paths return noise. Returns each group's worst error
+        in units and its tensor."""
+        top = max(g.abs().max().item() for g in g_p.values())
+        worst = dict.fromkeys(limits, (0.0, None))
+        for k, gp in g_p.items():
+            group = "backbone" if k.startswith("encoder.base.") else "decoder"
+            err = max_err(g_k[k], gp)
+            u = unit(max(gp.abs().max().item(), 1e-3 * top))
+            worst[group] = max(worst[group], (err / u, k))
+            if err > limits[group] * u:
+                check(f"train step {tag} gradient {k}", err,
+                      limits[group] * u)
+        log(f"  train step {tag} gradients: {len(g_p)} tensors ok; worst "
+            f"in units (limit): " + ", ".join(
+                f"{g} {w:.3f} ({limits[g]}) at {at}"
+                for g, (w, at) in worst.items()))
+        return worst
+
+    # bf16: the forwards agree to a few bf16 ulps of each mask logit, and
+    # the loss is an fp32 mean over all of them, so it moves far less than
+    # one bf16 ulp of itself (2^-8..2^-7 relative). The gradients: both
+    # paths round every cotangent between cells and steps to bf16, but the
+    # kernels also round dg before K5 and K3 read it, and the recurrence
+    # carries such differences back through T steps and the encoder
+    got, g_k = loss_grads(cfg, batch, T, False)
+    want_loss, g_p = loss_grads(cfg, batch, T, True)
+    bf16_rel = abs(got - want_loss) / abs(want_loss)
+    check("train step bf16 loss vs plain path (relative)", bf16_rel,
+          STEP_LOSS_BF16_REL)
+    bf16_grad = check_grads("bf16", g_k, g_p, lambda m: BF16_ULP * m,
+                            STEP_GRAD_BF16_ULPS)
+    del g_k, g_p
+    # float32 at T=2 on two images: the kernels' arithmetic is the plain
+    # path's, so the loss agrees to 1e-4 relative and every gradient to
+    # 1e-3 of its largest magnitude
+    cfg32 = train_config(2, 2, "float32")
+    batch32 = tuple(t[:2] for t in batch)
+    got, g_k = loss_grads(cfg32, batch32, 2, False)
+    want_loss, g_p = loss_grads(cfg32, batch32, 2, True)
+    check("train step fp32 T=2 loss vs plain path (relative)",
+          abs(got - want_loss) / abs(want_loss), 1e-4)
+    check_grads("fp32 T=2", g_k, g_p, lambda m: 1e-3 * m,
+                {"backbone": 1, "decoder": 1})
+    return {"batch": b, "steps": T, "iters": n, "remat": remat,
+            "ms_per_step": step_ms, "images_per_s": img_s, "peak_gb": peak_gb,
+            "losses": losses, "launches": launches,
+            "bf16_loss_rel_err": bf16_rel,
+            "bf16_grad_worst_ulps": bf16_grad, "profile": profile}
+
+
+def time_backward_kernels(cell_geoms, b, gen) -> dict:
+    """K4, K5 and K3 at the train step's five cells (bf16): device ms of
+    one decode step's five launches of each, against the plain version,
+    the bound and the library call (cuDNN's conv and its weight gradient on
+    NCHW copies of the same inputs)."""
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    from rsis_tpu_torch.ops.conv3x3 import (conv3x3_rowmajor,
+                                            conv3x3_rowmajor_ref)
+    F = torch.nn.functional
+    dtype = torch.bfloat16
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes", "ops")
+    out = {k: dict.fromkeys(keys, 0.0) for k in ("k3", "k4", "k5")}
+    for k in out.values():
+        k["cells"] = []
+    for i, geom in enumerate(cell_geoms):
+        hh, ww, ch, cx = geom
+        ops, (dh, dc) = bwd_inputs(geom, b, dtype, gen)
+        h_prev, x_pad = ops[0], ops[1]
+        kw = {"cx": cx, "ch": ch}
+        dg, dc_prev = fcv.cell_backward_dgates(*ops, dh, dc, **kw)
+        gemm_ops = 2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww
+        nchw = [t.permute(0, 2, 1, 3).contiguous() for t in
+                ([x_pad[:, 1:-1, :, 1:-1]] if cx else []) + [h_prev]]
+        xh_nchw = torch.cat(nchw, dim=1)
+        dg_nchw = dg.permute(0, 2, 1, 3).contiguous()
+        wpack = fcv.conv_transpose_weights(ops[4], cx, ch, "xh" if cx else "h")
+        w_conv = wpack.reshape(cx + ch, 3, 3, 4 * ch).permute(0, 3, 1, 2
+                                                               ).contiguous()
+        rows = {
+            "k4": (lambda: fcv.cell_backward_dgates(*ops, dh, dc, **kw),
+                   lambda: fcv.cell_backward_dgates_ref(*ops, dh, dc, **kw),
+                   None, nbytes(*ops, dh, dc, dg, dc_prev), gemm_ops),
+            "k5": (lambda: fcv.weight_grad_rowmajor(h_prev, x_pad, dg, **kw),
+                   lambda: fcv.weight_grad_ref(h_prev, x_pad, dg, **kw),
+                   lambda: torch.nn.grad.conv2d_weight(
+                       xh_nchw, (4 * ch, cx + ch, 3, 3), dg_nchw, padding=1),
+                   # dwt has wt's size and dtype
+                   nbytes(h_prev, x_pad, dg, ops[4]), gemm_ops),
+            "k3": (lambda: conv3x3_rowmajor(dg, wpack, cin=4 * ch,
+                                            cout=cx + ch),
+                   lambda: conv3x3_rowmajor_ref(dg, wpack, cin=4 * ch,
+                                                cout=cx + ch),
+                   lambda: F.conv2d(dg_nchw, w_conv, padding=1),
+                   nbytes(dg, wpack) + b * hh * (cx + ch) * ww * 2,
+                   gemm_ops),
+        }
+        for name, (kern, plain, library, n_b, n_ops) in rows.items():
+            ms = graph_ms(kern, iters=20)
+            pms = graph_ms(plain, iters=5)
+            lms = graph_ms(library, iters=20) if library else None
+            bms, by = bound_ms(n_b, n_ops, dtype)
+            row = out[name]
+            row["cells"].append({"cell": i, "geom": list(geom), "ms": ms,
+                                 "plain_ms": pms, "library_ms": lms,
+                                 "bound_ms": bms, "bound_by": by})
+            for key, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
+                             ("library_ms", lms or 0.0), ("bytes", n_b),
+                             ("ops", n_ops)):
+                row[key] += val
+            lib = f"{lms:.4f}" if lms is not None else "none"
+            log(f"  {name.upper()} cell{i} {geom} B={b}: {ms:.4f} ms (plain "
+                f"{pms:.4f}, library {lib}, bound {bms:.4f} by {by})")
+    for name, row in out.items():
+        row["bound_by"] = bound_ms(row["bytes"], row["ops"], dtype)[1]
+        if name == "k4":
+            row["library_ms"] = None
+    return out
+
+
+def time_lap(b: int, T: int, n: int, gen) -> dict:
+    """K6 at the train step's matcher shape (B, T predictions, N GT slots)
+    on loss-like costs: device ms against the plain (host) solver. The
+    bound counts what these costs need: the costs read and row4col written
+    once, and 6 fp32 operations per column per Dijkstra step that the
+    plain solver took on them."""
+    from rsis_tpu_torch.ops.lap import solve_lap_batch, solve_lap_batch_ref
+    costs = [c for name, c in lap_cases(gen, b, ((T, n),))
+             if name.startswith("ties")][0]
+    stats = {}
+    solve_lap_batch_ref(costs, stats)
+    ms = graph_ms(lambda: solve_lap_batch(costs), iters=20)
+    pms = cuda_ms(lambda: solve_lap_batch_ref(costs), iters=3, warmup=1)
+    bms, by = bound_ms(nbytes(costs) + b * n * 4, 6.0 * n * stats["scans"],
+                       torch.float32)
+    log(f"  K6 LAP ({b}, {T}, {n}): {ms:.4f} ms (plain {pms:.4f} on the "
+        f"host, bound {bms:.6f} by {by}; {stats['scans']} Dijkstra steps)")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "scans": stats["scans"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -182,8 +615,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this file")
+    ap.add_argument("--train-batch", type=int, default=8)
+    ap.add_argument("--train-steps", type=int, default=5,
+                    help="decode steps T of the train step")
     ap.add_argument("--profile", action="store_true",
-                    help="print device time by operation for one forward")
+                    help="print device time by operation for one forward "
+                    "and one train step")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -232,7 +669,14 @@ def main() -> int:
         hh, ww = height // 2 ** (5 - i), width // 2 ** (5 - i)
         cell_geoms.append((hh, ww, ch, widths[i - 1] if i else 0))
     head_shape = (b, cell_geoms[-1][0], widths[-1], cell_geoms[-1][1])
+    # the five cells of the train step's decode (input TRAIN_HW)
+    train_geoms = [(TRAIN_HW[0] // 2 ** (5 - i), TRAIN_HW[1] // 2 ** (5 - i),
+                    ch, widths[i - 1] if i else 0)
+                   for i, ch in enumerate(widths)]
+    tb = args.train_batch
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
+               else None)
 
     # ---- 2. kernels against their plain versions ----------------------
     log(f"kernel checks at the main path's shapes, B={b}:")
@@ -270,8 +714,13 @@ def main() -> int:
         check(f"K2 head {head_shape} {tag}", err, tol)
         if dtype == torch.bfloat16:
             k2_err = err
+    log(f"backward kernel checks at the train step's shapes, B={tb}:")
+    bwd_err = check_backward_kernels(train_geoms, tb, gen)
+    lap_err = check_lap(gen)
+    cell_bwd_ulps = check_cell_backward(train_geoms, tb, gen)
+    log(f"  cell backward bf16: worst {cell_bwd_ulps:.3f} bf16 ulps")
 
-    # ---- 3. the main path ----------------------------------------------
+    # ---- 3. the inference path -----------------------------------------
     cfg = Config(base_model="resnet101", hidden_size=hidden, num_classes=9,
                  skip_mode="concat", maxseqlen=args.steps,
                  compute_dtype="bfloat16")
@@ -345,7 +794,10 @@ def main() -> int:
               1e-3)
     del enc32, dec32, got32, ref32
 
-    # ---- 4. timings ----------------------------------------------------
+    # ---- 4. the training path ------------------------------------------
+    train = train_phase(args, out_dir)
+
+    # ---- 5. timings ----------------------------------------------------
     encoder = enc_p
     x = x_nchw.to(torch.bfloat16)
     with torch.inference_mode():
@@ -357,10 +809,9 @@ def main() -> int:
         fwd_ms = cuda_ms(lambda: forward(cfg, encoder, dec_p, x_nchw,
                                          T=args.steps), iters=3)
         if args.profile:
-            profile_forward(
+            profile_call(
                 lambda: forward(cfg, encoder, dec_p, x_nchw, T=args.steps),
-                os.path.dirname(os.path.abspath(args.out)) if args.out
-                else None)
+                out_dir, "forward")
     img_s = b / (fwd_ms / 1e3)
     log(f"encoder {enc_ms:.3f} ms/batch; decode {dec_ms:.3f} ms/step; "
         f"forward T={args.steps} {fwd_ms:.3f} ms/batch = {img_s:.2f} img/s "
@@ -400,6 +851,17 @@ def main() -> int:
     k2_bms, k2_by = bound_ms(k2_bytes, k2_ops, dtype)
     log(f"  K2 head {head_shape}: {k2_ms:.4f} ms (plain {k2_pms:.4f}, "
         f"bound {k2_bms:.4f} by {k2_by})")
+    bwd = time_backward_kernels(train_geoms, tb, gen)
+    lap = time_lap(tb, args.train_steps, 20, gen)
+    tl = train["launches"]
+
+    def bwd_row(key, name, source, replaces):
+        row = bwd[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": tl[name],
+                "max_abs_err": bwd_err[key], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     kernels = [
         {"name": "fused_cell_rowmajor", "route": "cuda",
@@ -414,6 +876,21 @@ def main() -> int:
          "launches": launches["mask_head_fused_kernel"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_pms,
          "bound_ms": k2_bms, "bound_by": k2_by, "library_ms": None},
+        bwd_row("k3", "conv3x3_rowmajor", "rsis_tpu_torch/csrc/conv3x3.cu",
+                "rsis_tpu/ops/pallas_decode.py:437"),
+        bwd_row("k4", "cell_backward_dgates",
+                "rsis_tpu_torch/csrc/cell_bwd.cu",
+                "rsis_tpu/ops/pallas_decode_vjp.py:194"),
+        bwd_row("k5", "weight_grad_rowmajor",
+                "rsis_tpu_torch/csrc/weight_grad.cu",
+                "rsis_tpu/ops/pallas_decode_vjp.py:317"),
+        {"name": "solve_lap_batch", "route": "cuda",
+         "source": "rsis_tpu_torch/csrc/lap.cu",
+         "replaces": "rsis_tpu/ops/pallas_matching.py:185",
+         "launches": tl["solve_lap_batch"], "max_abs_err": lap_err,
+         "ms": lap["ms"], "plain_ms": lap["plain_ms"],
+         "bound_ms": lap["bound_ms"], "bound_by": lap["bound_by"],
+         "library_ms": None},
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -425,10 +902,16 @@ def main() -> int:
                        "encoder_ms": enc_ms, "decode_ms_per_step": dec_ms,
                        "forward_ms": fwd_ms, "images_per_s": img_s,
                        "main_err": main_err, "k1_cells": k1["cells"],
-                       "kernels": kernels}, f, indent=1)
+                       "cell_bwd_bf16_ulps": cell_bwd_ulps,
+                       "train": train, "train_batch": tb,
+                       "backward_cells": {k: v["cells"]
+                                          for k, v in bwd.items()},
+                       "lap": lap, "kernels": kernels}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"device times (CUDA-graph replay): K1 ms is one decode step's five "
-        f"launches at B={b}, K2 ms one launch")
+        f"launches at B={b}, K2 ms one launch; K3, K4 and K5 ms one decode "
+        f"step's five launches at B={tb}, K6 ms one launch; launches of K1 "
+        f"and K2 are from the inference path, of K3-K6 from the train path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

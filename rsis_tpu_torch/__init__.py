@@ -3,8 +3,10 @@
 The JAX package ``rsis_tpu`` is the reference this package is held
 against; nothing here imports it. Module names follow their JAX
 counterparts (``models/rsis.py`` ports ``rsis_tpu/models/rsis.py`` and so
-on). Model modules compute in NCHW; the decode loop and the two CUDA
-kernel wrappers keep the reference's (B, H, C, W) layout.
+on). Model modules compute in NCHW; the decode loop and the cell kernels'
+wrappers keep the reference's (B, H, C, W) layout. Two slices are ported:
+the inference forward (``evals/forward.py``) and the training step
+(``train/step.py``).
 
 Kernel wrappers dispatch on the device of the tensors they are given: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the

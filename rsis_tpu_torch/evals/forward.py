@@ -14,17 +14,10 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..device import resolve_device
 from ..models.rsis import build_models, compute_dtype, forward
 
 Weights = Union[Mapping[str, torch.Tensor], nn.Module]
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_forward: no CUDA device is available; pass "
-                           "device='cpu' to run on the CPU")
-    return device
 
 
 def make_forward(cfg: Config, T: int | None = None, device=None):
@@ -38,7 +31,7 @@ def make_forward(cfg: Config, T: int | None = None, device=None):
     decoder in fp32 with its parameters cast at use. x_nhwc is a float
     (B, H, W, 3) normalised image batch, on any device."""
     T = T or cfg.maxseqlen
-    device = _resolve_device(device)
+    device = resolve_device(device, "make_forward")
     encoder, decoder = build_models(cfg)
     encoder = encoder.to(device=device, dtype=compute_dtype(cfg))
     decoder = decoder.to(device=device)

@@ -13,11 +13,34 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose running statistics follow flax.linen.BatchNorm
+    in train mode: torch moves running_var toward the unbiased batch
+    variance (n / (n - 1) times the biased one), flax toward the biased
+    one. torch's momentum 0.1 is flax's 0.9."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        kept = (1.0 - self.momentum) * self.running_var
+        # batch_norm updates (and autograd keeps) this copy, so the buffer
+        # can be rewritten below without touching a saved tensor
+        var = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                           True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        # torch added momentum * var * n / (n - 1): keep (n - 1) / n of it
+        torch.lerp(kept, var.detach(), (n - 1) / n, out=self.running_var)
+        return out
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5)
 
 
 class Bottleneck(nn.Module):

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from .backbones import BACKBONES, SKIP_DIMS
+from .backbones import BACKBONES, SKIP_DIMS, BatchNorm2d
 
 
 class FeatureExtractor(nn.Module):
@@ -24,7 +24,7 @@ class FeatureExtractor(nn.Module):
         for i, (cin, width) in enumerate(zip(SKIP_DIMS[base_model], widths)):
             setattr(self, f"sk{5 - i}", nn.Conv2d(cin, width, kernel_size,
                                                   padding=pad))
-            setattr(self, f"bn{5 - i}", nn.BatchNorm2d(width, eps=1e-5))
+            setattr(self, f"bn{5 - i}", BatchNorm2d(width, eps=1e-5))
 
     def forward(self, x):
         """x: (B, 3, H, W) normalised image -> 5 skip features (x5..x1)."""

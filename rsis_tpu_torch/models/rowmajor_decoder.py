@@ -16,7 +16,14 @@ the linearity of the gate conv:
 
 The S terms, h and c are stored in the compute dtype between cells and
 steps; the upsample products accumulate in fp32 and are cast after each
-product, as the reference does. Inference only.
+product, as the reference does.
+
+The same loop trains (the counterpart of ``rowmajor_decoder_step``'s
+differentiable path): the cells run through ``FusedCellFunction`` and the
+head through ``MaskHeadFunction``, whose backwards are kernels too, while
+the S-term hoist, the inter-cell upsample and the global max stay plain
+autograd (``amax`` splits tied cotangents evenly, as ``jnp.max`` does).
+plain=True runs the kernels' plain versions under autograd instead.
 """
 
 from __future__ import annotations
@@ -26,9 +33,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_cell import (fused_cell_rowmajor, fused_cell_rowmajor_ref,
-                              pack_cell_weights)
-from ..ops.mask_head import mask_head_fused_kernel, mask_head_ref
+from ..ops.fused_cell import fused_cell_rowmajor_ref, pack_cell_weights
+from ..ops.fused_cell_vjp import FusedCellFunction
+from ..ops.mask_head import MaskHeadFunction, mask_head_ref
 from ..ops.upsample import interp_matrix
 from .decoder import RSISDecoder, decoder_widths
 
@@ -111,7 +118,6 @@ def rowmajor_decoder_step(decoder: RSISDecoder, cells, carry,
 
     Returns ((finest h, class_probs, stop_logits), new_carry): the caller
     owns the mask head. plain=True runs the kernels' plain versions."""
-    cell_fn = fused_cell_rowmajor_ref if plain else fused_cell_rowmajor
     side_feats, new_carry = [], []
     h = None
     for i, cell in enumerate(cells):
@@ -120,8 +126,12 @@ def rowmajor_decoder_step(decoder: RSISDecoder, cells, carry,
         if i > 0:
             x_pad = _upsample_rowmajor(h, h_prev.shape[1], h_prev.shape[3],
                                        pad=True)
-        h, c = cell_fn(h_prev, x_pad, c_prev, cell["s"], cell["wt"],
-                       cx=cell["cx"], ch=cell["ch"])
+        args = (h_prev, x_pad, c_prev, cell["s"], cell["wt"])
+        if plain:
+            h, c = fused_cell_rowmajor_ref(*args, cx=cell["cx"],
+                                           ch=cell["ch"])
+        else:
+            h, c = FusedCellFunction.apply(*args, cell["cx"], cell["ch"])
         new_carry.append((h, c))
         side_feats.append(h.amax(dim=(1, 3)))
     feats = torch.cat(side_feats, dim=-1)
@@ -145,7 +155,7 @@ def decode_sequence_rowmajor(decoder: RSISDecoder,
     logits, class_probs (B, T, K) and stop_logits (B, T, 1)."""
     if skip_mode not in CHANNEL_SEPARABLE:
         raise ValueError(f"skip_mode {skip_mode!r} is not channel-separable")
-    head_fn = mask_head_ref if plain else mask_head_fused_kernel
+    head_fn = mask_head_ref if plain else MaskHeadFunction.apply
     cells = _hoist_cells_rowmajor(decoder, skips, skip_mode, dtype)
     carry = init_carry_rowmajor(skips, decoder.hidden_size, dtype)
     head_w = decoder.conv_out.weight

@@ -112,3 +112,13 @@ def from_jax_variables(variables: Mapping, base_model: str
     stats = variables.get("batch_stats", {}).get("encoder", {})
     return (encoder_state_dict(params["encoder"], stats, base_model),
             decoder_state_dict(params["decoder"]))
+
+
+def train_state_from_jax(cfg, variables: Mapping, device=None):
+    """A fresh port ``TrainState`` (``train/step.py``) on ``device``
+    (default cuda; raises without a card) holding the parameters and
+    BatchNorm statistics of a JAX variables pytree, so both packages start
+    a step from the same numbers. Optimizer moments start at zero."""
+    from ..train.step import create_train_state
+    return create_train_state(
+        cfg, from_jax_variables(variables, cfg.base_model), device=device)

@@ -51,19 +51,27 @@ def _unpack(wt: torch.Tensor, cx: int, ch: int):
     return wx, wh
 
 
-def fused_cell_rowmajor_ref(h_prev: torch.Tensor, x_pad: torch.Tensor | None,
-                            c_prev: torch.Tensor, s_term: torch.Tensor,
-                            wt: torch.Tensor, *, cx: int, ch: int):
-    """Plain PyTorch version of the kernel: the same products and update in
-    fp32 (inputs upcast exactly), h and c rounded once to the input dtype."""
-    dtype = h_prev.dtype
+def gates_ref(h_prev: torch.Tensor, x_pad: torch.Tensor | None,
+              s_term: torch.Tensor, wt: torch.Tensor, *, cx: int,
+              ch: int) -> torch.Tensor:
+    """The pre-activation gates, fp32 (B, 4C, H, W): the gate convolution
+    of the upcast inputs plus S."""
     wx, wh = _unpack(wt.float(), cx, ch)
     h = h_prev.permute(0, 2, 1, 3).float()               # (B, C, H, W)
     gates = F.conv2d(h, wh, padding=1)
     if cx > 0:
         x = x_pad.permute(0, 2, 1, 3).float()            # (B, Cx, H+2, W+2)
         gates = gates + F.conv2d(x, wx)
-    gates = gates + s_term.permute(0, 2, 1, 3).float()
+    return gates + s_term.permute(0, 2, 1, 3).float()
+
+
+def fused_cell_rowmajor_ref(h_prev: torch.Tensor, x_pad: torch.Tensor | None,
+                            c_prev: torch.Tensor, s_term: torch.Tensor,
+                            wt: torch.Tensor, *, cx: int, ch: int):
+    """Plain PyTorch version of the kernel: the same products and update in
+    fp32 (inputs upcast exactly), h and c rounded once to the input dtype."""
+    dtype = h_prev.dtype
+    gates = gates_ref(h_prev, x_pad, s_term, wt, cx=cx, ch=ch)
     i, f, o, g = torch.chunk(gates, 4, dim=1)
     c = (torch.sigmoid(f) * c_prev.permute(0, 2, 1, 3).float()
          + torch.sigmoid(i) * torch.tanh(g))

@@ -1,0 +1,268 @@
+"""Differentiable fused ConvLSTM cell: an autograd.Function over the kernels.
+
+Counterpart of ``rsis_tpu/ops/pallas_decode_vjp.py`` (``_bwd_kernel``,
+``_cell_backward_dgates``, ``_conv_transpose_rowmajor``,
+``weight_grad_rowmajor`` / ``_weight_grad``, ``_cell_bwd_core``,
+``make_fused_cell_vjp``). The forward is ``fused_cell_rowmajor`` (K1). The
+backward keeps only the forward's inputs (rematerialisation: nothing
+extra is stored per step) and runs three kernels:
+
+  dg, dc_prev = cell_backward_dgates(...)       recompute the gates (K4)
+  dwt         = weight_grad_rowmajor(h, x, dg)  sum_pixels dg (x) taps (K5)
+  dx, dh_prev = conv3x3_rowmajor(dg, flip(W)^T) the pullback conv (K3)
+  ds          = dg                              (S enters additively)
+
+with the identities (gate order i, f, o, g)
+  dc_tot = dc + dh * o * (1 - tanh(c)^2)
+  d_i = dc_tot * g * i(1 - i);   d_f = dc_tot * c_prev * f(1 - f)
+  d_o = dh * tanh(c) * o(1 - o); d_g = dc_tot * i * (1 - g^2)
+  dc_prev = dc_tot * f
+in fp32; dg and dc_prev are stored in the input dtype, the pullback conv
+accumulates in fp32 and stores in the input dtype, and dwt accumulates in
+fp32 and is cast to dg's dtype, as the JAX package rounds them. Each kernel
+wrapper runs its plain version on CPU tensors and its kernel on CUDA
+tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .conv3x3 import conv3x3_rowmajor
+from .fused_cell import _DTYPE_CODES, _check, fused_cell_rowmajor, gates_ref
+
+
+# ---- K4: gate recompute and gate cotangents ------------------------------
+
+def cell_backward_dgates_ref(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *,
+                             cx: int, ch: int):
+    """Plain version of K4: (dg (B, H, 4C, W), dc_prev (B, H, C, W)) in
+    the input dtype, computed in fp32."""
+    dtype = h_prev.dtype
+    gates = gates_ref(h_prev, x_pad, s_term, wt, cx=cx, ch=ch)
+    i_p, f_p, o_p, g_p = torch.chunk(gates, 4, dim=1)
+    i, f, o = torch.sigmoid(i_p), torch.sigmoid(f_p), torch.sigmoid(o_p)
+    g = torch.tanh(g_p)
+
+    def nchw(t):
+        return t.permute(0, 2, 1, 3).float()
+
+    cp, dhv = nchw(c_prev), nchw(dh)
+    c = f * cp + i * g
+    tc = torch.tanh(c)
+    dc_tot = nchw(dc) + dhv * o * (1.0 - tc * tc)
+    dg = torch.cat([dc_tot * g * i * (1.0 - i),
+                    dc_tot * cp * f * (1.0 - f),
+                    dhv * tc * o * (1.0 - o),
+                    dc_tot * i * (1.0 - g * g)], dim=1)
+    return (dg.to(dtype).permute(0, 2, 1, 3).contiguous(),
+            (dc_tot * f).to(dtype).permute(0, 2, 1, 3).contiguous())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("cell_bwd")
+    lib.rsis_cell_bwd.argtypes = ([ctypes.c_void_p] * 9
+                                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.rsis_cell_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _kernel_operands(name, tensors, dtype):
+    """Raise unless the CUDA kernel takes these operands."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if any(t is not None and not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} kernel needs contiguous operands")
+
+
+def cell_backward_dgates(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *,
+                         cx: int, ch: int):
+    """Gate cotangents of one cell step: recompute the gates from the
+    forward inputs and apply the identities to the output cotangents dh,
+    dc (B, H, C, W). Returns (dg (B, H, 4C, W), dc_prev (B, H, C, W)) in
+    the input dtype.
+
+    CPU tensors take the plain version. CUDA tensors (float32 or bfloat16,
+    contiguous) launch ``csrc/cell_bwd.cu`` and count one launch in
+    ``cell_backward_dgates.launches``."""
+    _check(h_prev, x_pad, c_prev, s_term, wt, cx, ch)
+    for t in (dh, dc):
+        if t.shape != h_prev.shape or t.device != h_prev.device \
+                or t.dtype != h_prev.dtype:
+            raise ValueError("dh and dc must match h_prev's shape, device "
+                             "and dtype")
+    if h_prev.device.type == "cpu":
+        return cell_backward_dgates_ref(h_prev, x_pad, c_prev, s_term, wt,
+                                        dh, dc, cx=cx, ch=ch)
+    if h_prev.device.type != "cuda":
+        raise ValueError(f"no kernel for device {h_prev.device}")
+    _kernel_operands("cell backward",
+                     (h_prev, x_pad, c_prev, s_term, wt, dh, dc),
+                     h_prev.dtype)
+    b, h, _, w = h_prev.shape
+    dg = torch.empty_like(s_term)
+    dc_prev = torch.empty_like(h_prev)
+    with torch.cuda.device(h_prev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib().rsis_cell_bwd(
+            h_prev.data_ptr(), None if x_pad is None else x_pad.data_ptr(),
+            c_prev.data_ptr(), s_term.data_ptr(), wt.data_ptr(),
+            dh.data_ptr(), dc.data_ptr(), dg.data_ptr(), dc_prev.data_ptr(),
+            b, h, w, ch, cx, _DTYPE_CODES[h_prev.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"cell backward kernel launch failed: CUDA error "
+                           f"{err}")
+    cell_backward_dgates.launches += 1
+    return dg, dc_prev
+
+
+cell_backward_dgates.launches = 0
+
+
+# ---- K5: weight gradient --------------------------------------------------
+
+def weight_grad_ref(h_prev, x_pad, dg, *, cx: int, ch: int) -> torch.Tensor:
+    """Plain version of K5: dwt (4C, 9(Cx+C)) = sum over pixels of dg times
+    the 9 shifted inputs (x taps, then h taps), in fp32, cast to dg's
+    dtype. The x_pad ring is read as given (it is zero wherever the
+    decoder builds x_pad); the h halo is zero."""
+    b, h, _, w = dg.shape
+    dgf = dg.float()
+    sources = []
+    if cx:
+        sources.append(x_pad.float())
+    sources.append(F.pad(h_prev.float(), (1, 1, 0, 0, 1, 1)))
+    blocks = [torch.einsum("bhgw,bhcw->gc", dgf,
+                           src[:, dy:dy + h, :, dx:dx + w])
+              for src in sources for dy in range(3) for dx in range(3)]
+    return torch.cat(blocks, dim=1).to(dg.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _dwt_lib() -> ctypes.CDLL:
+    lib = _build.load("weight_grad")
+    lib.rsis_weight_grad_workspace.argtypes = [ctypes.c_int] * 6
+    lib.rsis_weight_grad_workspace.restype = ctypes.c_longlong
+    lib.rsis_weight_grad.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.rsis_weight_grad.restype = ctypes.c_int
+    return lib
+
+
+def weight_grad_rowmajor(h_prev, x_pad, dg, *, cx: int,
+                         ch: int) -> torch.Tensor:
+    """Weight gradient of the packed gate weight: dwt (4C, 9(Cx+C)) in dg's
+    dtype (summed in fp32).
+
+    CPU tensors take the plain version. CUDA tensors (float32 or bfloat16,
+    contiguous) launch ``csrc/weight_grad.cu`` (two passes: chunk partials,
+    then their sum in a fixed order, so the result is the same on every
+    run) and count one launch in ``weight_grad_rowmajor.launches``."""
+    b, h, c_dim, w = h_prev.shape
+    if c_dim != ch or tuple(dg.shape) != (b, h, 4 * ch, w):
+        raise ValueError(f"h_prev {tuple(h_prev.shape)} / dg "
+                         f"{tuple(dg.shape)} do not hold C={ch}")
+    if (cx == 0) != (x_pad is None) or (
+            cx and tuple(x_pad.shape) != (b, h + 2, cx, w + 2)):
+        raise ValueError(f"x_pad must be {(b, h + 2, cx, w + 2)} when cx > 0"
+                         f" and None when cx == 0")
+    tensors = [t for t in (h_prev, x_pad, dg) if t is not None]
+    if any(t.device != dg.device or t.dtype != dg.dtype for t in tensors):
+        raise ValueError("all operands must share one device and dtype")
+    if dg.device.type == "cpu":
+        return weight_grad_ref(h_prev, x_pad, dg, cx=cx, ch=ch)
+    if dg.device.type != "cuda":
+        raise ValueError(f"no kernel for device {dg.device}")
+    _kernel_operands("weight gradient", tensors, dg.dtype)
+    code = _DTYPE_CODES[dg.dtype]
+    lib = _dwt_lib()
+    n_ws = lib.rsis_weight_grad_workspace(b, h, w, ch, cx, code)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dg.device)
+    dwt = torch.empty((4 * ch, 9 * (cx + ch)), dtype=dg.dtype,
+                      device=dg.device)
+    with torch.cuda.device(dg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rsis_weight_grad(
+            h_prev.data_ptr(), None if x_pad is None else x_pad.data_ptr(),
+            dg.data_ptr(), ws.data_ptr(), n_ws, dwt.data_ptr(), b, h, w, ch,
+            cx, code, stream)
+    if err != 0:
+        raise RuntimeError(f"weight gradient kernel launch failed: CUDA "
+                           f"error {err}")
+    weight_grad_rowmajor.launches += 1
+    return dwt
+
+
+weight_grad_rowmajor.launches = 0
+
+
+# ---- the pullback conv's weight and the whole backward ------------------
+
+def conv_transpose_weights(wt: torch.Tensor, cx: int, ch: int,
+                           take: str) -> torch.Tensor:
+    """Packed (Cout', 9 * 4C) weight of the transposed gate convolution for
+    the input part selected by ``take`` ("x", "h" or "xh", x rows first):
+    row c, tap t holds wt[:, src + c] of the spatially flipped tap
+    8 - t (``_conv_transpose_rowmajor``'s repack)."""
+    g4 = 4 * ch
+    parts = []
+    if take in ("x", "xh"):
+        parts.append(wt[:, :9 * cx].reshape(g4, 9, cx))
+    if take in ("h", "xh"):
+        parts.append(wt[:, 9 * cx:].reshape(g4, 9, ch))
+    w = torch.cat(parts, dim=2).flip(1)                  # (4C, 9, Cout')
+    return w.permute(2, 1, 0).reshape(-1, 9 * g4).contiguous()
+
+
+def cell_bwd_core(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *, cx: int,
+                  ch: int):
+    """Backward body of the cell: (dg, dc_prev, dwt, dx, dh_prev), dx the
+    unpadded up-input cotangent (B, H, Cx, W) or None when cx == 0.
+
+    The ring of x_pad reaches the edge gates, but its cotangent is dropped:
+    the decoder builds x_pad with a structurally zero ring (the padded
+    interpolation matrices), whose transpose drops those gradients anyway,
+    so the composed gradient is exact."""
+    dg, dc_prev = cell_backward_dgates(h_prev, x_pad, c_prev, s_term, wt, dh,
+                                       dc, cx=cx, ch=ch)
+    dwt = weight_grad_rowmajor(h_prev, x_pad, dg, cx=cx, ch=ch)
+    # one conv for both pullbacks: out (B, H, Cx + C, W), x rows first
+    wpack = conv_transpose_weights(wt, cx, ch, "xh" if cx else "h")
+    dxh = conv3x3_rowmajor(dg, wpack, cin=4 * ch, cout=cx + ch)
+    if cx:
+        return (dg, dc_prev, dwt, dxh[:, :, :cx],
+                dxh[:, :, cx:].contiguous())
+    return dg, dc_prev, dwt, None, dxh
+
+
+class FusedCellFunction(torch.autograd.Function):
+    """Differentiable fused cell: apply(h_prev, x_pad, c_prev, s_term, wt,
+    cx, ch) -> (h, c). The forward is K1; the backward keeps the forward's
+    inputs and runs K4, K5 and K3. It returns (dh_prev, dx_pad, dc_prev,
+    ds = dg, dwt), dx_pad being dx with a zero ring."""
+
+    @staticmethod
+    def forward(ctx, h_prev, x_pad, c_prev, s_term, wt, cx: int, ch: int):
+        ctx.save_for_backward(h_prev, x_pad, c_prev, s_term, wt)
+        ctx.cx, ctx.ch = cx, ch
+        return fused_cell_rowmajor(h_prev, x_pad, c_prev, s_term, wt, cx=cx,
+                                   ch=ch)
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        h_prev, x_pad, c_prev, s_term, wt = ctx.saved_tensors
+        # autograd may hand over strided cotangents; the kernels take
+        # contiguous ones
+        dg, dc_prev, dwt, dx, dh_prev = cell_bwd_core(
+            h_prev, x_pad, c_prev, s_term, wt, dh.contiguous(),
+            dc.contiguous(), cx=ctx.cx, ch=ctx.ch)
+        dx_pad = None if dx is None else F.pad(dx, (1, 1, 0, 0, 1, 1))
+        return dh_prev, dx_pad, dc_prev, dg, dwt, None, None

@@ -91,3 +91,26 @@ def mask_head_fused_kernel(hs: torch.Tensor, weight: torch.Tensor,
 
 
 mask_head_fused_kernel.launches = 0
+
+
+class MaskHeadFunction(torch.autograd.Function):
+    """Differentiable head for the training step: apply(hs, weight, bias)
+    -> (B, 2H, 2W, 1) logits, as ``mask_head_fused_kernel``.
+
+    Counterpart of ``rsis_tpu/ops/pallas_mask_head.py::make_mask_head_vjp``.
+    The forward is the kernel (K2) on CUDA tensors; the backward is the
+    pullback of the dense formulation ``mask_head_ref`` (fp32) through
+    autograd. The head is linear in hs, so the pullback costs the
+    transposed interpolation products and conv, nothing of the forward."""
+
+    @staticmethod
+    def forward(ctx, hs, weight, bias):
+        ctx.save_for_backward(hs, weight, bias)
+        return mask_head_fused_kernel(hs, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = mask_head_ref(*leaves)
+            return torch.autograd.grad(out, leaves, grad)

@@ -7,9 +7,12 @@
 - models/rsis.decode_sequence (the plain decode, the only path for "mul")
   against JAX rsis.decode_sequence.
 
-Weights come from JAX init and pass through models/weights.py. fp32, T=3;
+Weights come from JAX init (jitted: the same numbers as the eager init in
+a fraction of the time) and pass through models/weights.py. fp32, T=3;
 atol 1e-4 (as tests/test_rowmajor_decoder.py) covers fp32 summation order
-compounded over 5 cells x 3 steps."""
+compounded over 5 cells x 3 steps. The skip pyramid is the one of
+tests/test_fast_decoder.py::make_setup with its fine cells shrunk 4x,
+which keeps the interpret-mode compiles short."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from rsis_tpu.models.decoder import RSISDecoder as JaxRSISDecoder
 from rsis_tpu.models.rowmajor_decoder import (
     decode_sequence_rowmajor as jax_decode_rowmajor)
 from rsis_tpu.models.rsis import decode_sequence as jax_decode_sequence
@@ -24,14 +28,25 @@ from rsis_tpu_torch.models import rowmajor_decoder as trm
 from rsis_tpu_torch.models.decoder import RSISDecoder
 from rsis_tpu_torch.models.rsis import decode_sequence
 from rsis_tpu_torch.models.weights import decoder_state_dict
-from tests.test_fast_decoder import make_setup
 
 ATOL = 1e-4
 T = 3
+# (C, H, W) of the five skips, coarsest first
+GEOMS = [(16, 2, 4), (16, 2, 4), (8, 2, 4), (4, 4, 8), (2, 8, 16)]
+
+
+def _jax_setup(skip_mode, seed=0):
+    rng = np.random.default_rng(seed)
+    skips = [jnp.asarray(rng.normal(size=(1, hh, ww, c)).astype(np.float32))
+             for (c, hh, ww) in GEOMS]
+    dec = JaxRSISDecoder(hidden_size=16, num_classes=4, skip_mode=skip_mode)
+    variables = jax.jit(lambda key: dec.init(key, skips, None, train=False))(
+        jax.random.PRNGKey(seed))
+    return dec, variables["params"], skips
 
 
 def _port_setup(skip_mode):
-    dec, params, skips = make_setup(skip_mode=skip_mode, b=1, scale=2)
+    dec, params, skips = _jax_setup(skip_mode)
     decoder = RSISDecoder(hidden_size=dec.hidden_size, num_classes=4,
                           skip_mode=skip_mode)
     decoder.load_state_dict(
@@ -71,7 +86,8 @@ def test_plain_decode_matches_jax_mul():
 
 
 def test_rowmajor_rejects_mul():
-    _, _, _, decoder, t_skips = _port_setup("mul")
+    decoder = RSISDecoder(hidden_size=16, num_classes=4, skip_mode="mul")
+    t_skips = [torch.zeros(1, c, hh, ww) for (c, hh, ww) in GEOMS]
     with pytest.raises(ValueError):
         trm.decode_sequence_rowmajor(decoder, t_skips, 1, "mul",
                                      dtype=torch.float32)

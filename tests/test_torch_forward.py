@@ -12,7 +12,9 @@
   keys and shapes of the port's modules;
 - the round trip port state_dict -> rsis_tpu torch_import -> the JAX
   variables, exactly.
-Weights come from JAX init; inputs from a numpy seed."""
+Weights come from JAX init; inputs from a numpy seed. The JAX init and
+forward run jitted: the same numbers as eager execution, compiled once
+instead of op by op."""
 
 import dataclasses
 
@@ -30,10 +32,17 @@ from rsis_tpu_torch.models.rsis import build_models
 from rsis_tpu_torch.models.weights import from_jax_variables
 
 
+_INITS = {}
+
+
 def _jax_variables(cfg, hw, seed=0):
-    """JAX init with randomised BatchNorm statistics (numpy leaves)."""
-    v = jax.tree.map(np.asarray, jax_rsis.init_variables(
-        cfg, jax.random.PRNGKey(seed), hw))
+    """JAX init with randomised BatchNorm statistics (numpy leaves). The
+    jitted init is kept per configuration, so seeds share one compile."""
+    key = (repr(cfg), hw)
+    if key not in _INITS:
+        _INITS[key] = jax.jit(
+            lambda k: jax_rsis.init_variables(cfg, k, hw))
+    v = jax.tree.map(np.asarray, _INITS[key](jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)
 
     def perturb(path, leaf):
@@ -66,7 +75,7 @@ def test_forward_matches_jax(skip_mode, kernel_size):
     v = _jax_variables(jcfg, (64, 64))
     x = np.random.default_rng(1).normal(size=(2, 64, 64, 3)).astype(
         np.float32)
-    want = jax_rsis.forward(jcfg, v, x, T=3)
+    want = jax.jit(lambda v, x: jax_rsis.forward(jcfg, v, x, T=3))(v, x)
     fn = make_forward(_port_config(jcfg), device="cpu")
     got = fn(from_jax_variables(v, "tiny"), x)
     assert [tuple(g.shape) for g in got] == [(2, 3, 64, 64), (2, 3, 4),
@@ -82,9 +91,9 @@ def test_encoder_matches_jax(base_model):
     x = np.random.default_rng(2).normal(size=(1, 64, 64, 3)).astype(
         np.float32)
     jenc, _ = jax_rsis.build_models(jcfg)
-    want = jenc.apply({"params": v["params"]["encoder"],
-                       "batch_stats": v["batch_stats"]["encoder"]},
-                      x, train=False)
+    want = jax.jit(lambda enc_vars, x: jenc.apply(enc_vars, x, train=False))(
+        {"params": v["params"]["encoder"],
+         "batch_stats": v["batch_stats"]["encoder"]}, x)
     encoder, _ = build_models(_port_config(jcfg))
     encoder.load_state_dict(from_jax_variables(v, base_model)[0])
     with torch.inference_mode():
@@ -109,7 +118,8 @@ def test_resnet101_state_dict_layout():
 
 
 def test_round_trip_through_torch_import():
-    jcfg = JaxConfig(base_model="resnet34", hidden_size=16, num_classes=4)
+    # the configuration of test_encoder_matches_jax[resnet34]: one compile
+    jcfg = JaxConfig(base_model="resnet34", hidden_size=16)
     v = _jax_variables(jcfg, (64, 64), seed=3)
     encoder, decoder = build_models(_port_config(jcfg))
     enc_sd, dec_sd = from_jax_variables(v, "resnet34")

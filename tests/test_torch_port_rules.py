@@ -60,6 +60,18 @@ def test_make_forward_without_device_needs_cuda():
         make_forward(Config(base_model="tiny", hidden_size=16))
 
 
+def test_make_train_step_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is usable")
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.train.step import create_train_state, make_train_step
+    cfg = Config(base_model="tiny", hidden_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg)
+
+
 def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
     code = (
         "import subprocess\n"
@@ -69,6 +81,10 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
         "import rsis_tpu_torch.ops._build as b\n"
         "import rsis_tpu_torch.ops.fused_cell, rsis_tpu_torch.ops.mask_head\n"
         "import rsis_tpu_torch.models.rsis, rsis_tpu_torch.evals.forward\n"
+        "import rsis_tpu_torch.ops.conv3x3, rsis_tpu_torch.ops.lap\n"
+        "import rsis_tpu_torch.ops.fused_cell_vjp\n"
+        "import rsis_tpu_torch.ops.matching\n"
+        "import rsis_tpu_torch.train.step, rsis_tpu_torch.data.synthetic\n"
         "assert b.load.cache_info().currsize == 0\n"
         "try:\n"
         "    b._nvcc()\n"
@@ -96,3 +112,37 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         mask_head_fused_kernel(torch.empty(1, 2, 4, 3, **meta),
                                torch.empty(1, 4, 3, 3, **meta),
                                torch.empty(1, **meta))
+
+
+def _meta_cell(ch=4, cx=0):
+    """Forward operands and output cotangents of one cell on ``meta``."""
+    m = dict(device="meta")
+    return ([torch.empty(1, 2, ch, 3, **m), None,
+             torch.empty(1, 2, ch, 3, **m), torch.empty(1, 2, 4 * ch, 3, **m),
+             torch.empty(4 * ch, 9 * (cx + ch), **m)],
+            [torch.empty(1, 2, ch, 3, **m), torch.empty(1, 2, ch, 3, **m)])
+
+
+def test_training_wrappers_do_not_fall_back_off_the_cpu():
+    from rsis_tpu_torch.ops.conv3x3 import conv3x3_rowmajor
+    from rsis_tpu_torch.ops.fused_cell_vjp import (FusedCellFunction,
+                                                   cell_backward_dgates,
+                                                   weight_grad_rowmajor)
+    from rsis_tpu_torch.ops.lap import solve_lap_batch
+    from rsis_tpu_torch.ops.mask_head import MaskHeadFunction
+    meta = dict(device="meta")
+    ops, (dh, dc) = _meta_cell()
+    calls = [
+        lambda: cell_backward_dgates(*ops, dh, dc, cx=0, ch=4),        # K4
+        lambda: weight_grad_rowmajor(ops[0], None, ops[3], cx=0, ch=4),
+        lambda: conv3x3_rowmajor(ops[3], torch.empty(4, 144, **meta),
+                                 cin=16, cout=4),                      # K3
+        lambda: solve_lap_batch(torch.empty(2, 3, 5, **meta)),         # K6
+        lambda: FusedCellFunction.apply(*ops, 0, 4),
+        lambda: MaskHeadFunction.apply(torch.empty(1, 2, 4, 3, **meta),
+                                       torch.empty(1, 4, 3, 3, **meta),
+                                       torch.empty(1, **meta)),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
