@@ -3,31 +3,44 @@
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the build of all six kernels in ``rsis_tpu_torch/csrc`` (one nvcc
-     per source, all started together);
+     and the build of all seven kernels in ``rsis_tpu_torch/csrc`` (one
+     nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, in float32 (TF32 off) and bfloat16:
      the forward kernels K1 and K2 at the inference geometry, the backward
      kernels K4, K5 and K3 at the train step's five cells, the LAP
-     matcher K6 on random and tie-heavy costs, and the cell's whole
-     backward (K4 + K5 + K3) against autograd through the plain cell;
+     matcher K6 on random and tie-heavy costs, the cell's whole backward
+     (K4 + K5 + K3) against autograd through the plain cell, and the
+     augmentation warp K7 at the train geometry (bit-identical: random
+     flips at the JAX bench's ranges, the identity, a strong translation
+     that clamps at the borders);
   3. the inference path: ``make_forward`` at full width (resnet101, hidden
      128, 9 classes, concat, 512x1024, bfloat16, random weights from
      --seed) answering a few batches, with K1's and K2's launch counts
      read from that run and the outputs held against the port's plain path
      on the card (and, in float32 at T=2, against a tighter tolerance);
   4. the training path: ``make_train_step`` at full width (the same model,
-     256x512, gt_maxseqlen 20, bfloat16, no augmentation, all three step
-     flags on) on one synthetic uint8 wire batch: a warm-up step, then
-     three timed steps with every kernel's launch count read from them and
-     the loss falling; one step held against the plain path on the card
-     (bfloat16 and float32 at T=2: the loss and every gradient);
+     256x512, gt_maxseqlen 20, bfloat16, device augmentation on as in the
+     JAX bench, all three step flags on) on one synthetic uint8 wire batch
+     with a CUDA generator: a warm-up step, then three timed steps with
+     every kernel's launch count read from them (K7 once a step) and the
+     loss falling; one step held against the plain path on the card from a
+     generator of the same seed (bfloat16 and float32 at T=2: the loss and
+     every gradient); one step with the three dropouts at 0.2;
+  4b. the trainer: ``python -m rsis_tpu_torch.cli.train``'s ``main`` at
+     full width on the synthetic dataset (256x256, batch 8, 16 images a
+     split, augmentation and curriculum learning, 2 epochs) into a
+     directory under build/, then again with --resume: the epoch lines,
+     the checkpoint files, the resumed epoch numbers and the growing
+     metrics.jsonl are checked; the loop's ms per train step and images
+     per second (data loading included) beside the step's alone;
   5. timings after warm-up: encoder, decode step, images per second and
      train ms per step from CUDA events or host clocks around whole,
      synchronised calls; each kernel's device time (CUDA-graph replay)
      against its plain version's, its bound and, where one exists, the
      PyTorch library call for the same function; with --profile, device
-     time by operation and the idle share of one forward and one step.
+     time by operation and the idle share of one forward, one step and a
+     resumed trainer run.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -68,6 +81,9 @@ STEP_GRAD_BF16_ULPS = {"backbone": 32, "decoder": 3}
 STEP_LOSS_BF16_REL = 1e-3          # bf16 train step's loss vs plain
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
+# the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
+# for the default dataset (pascal, zoom 0.7)
+WARP_RANGES = (10.0, 0.1, 0.1, (0.7, 1.4))  # rotation, translation, shear
 
 
 def log(*args) -> None:
@@ -370,7 +386,111 @@ def train_config(b: int, T: int, dtype: str = "bfloat16"):
     from rsis_tpu_torch import Config
     return Config(base_model="resnet101", hidden_size=128, num_classes=9,
                   skip_mode="concat", maxseqlen=T, compute_dtype=dtype,
-                  imsize=TRAIN_HW[0], gt_maxseqlen=20, batch_size=b)
+                  imsize=TRAIN_HW[0], gt_maxseqlen=20, batch_size=b,
+                  augment=True)
+
+
+def cuda_generator(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def warp_cases(b: int, gen):
+    """(name, image, ids, matrices, flip) of K7's checks at the train
+    geometry: fp32 and bf16 images with a uint8 id plane, random flips and
+    matrices at the bench's ranges, the identity, and a strong translation
+    whose rows and columns clamp at the borders."""
+    from rsis_tpu_torch.data.device_aug import sample_affine_matrices
+    hh, ww = TRAIN_HW
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        img = torch.randn(b, hh, ww, 3, generator=gen, device="cuda").to(dtype)
+        ids = torch.randint(0, 21, (b, hh, ww), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+        flip = torch.rand(b, generator=gen, device="cuda") < 0.5
+        bench = sample_affine_matrices(gen, b, hh, ww, *WARP_RANGES)
+        strong = sample_affine_matrices(gen, b, hh, ww, 15.0, 0.4, 5.0,
+                                        (0.8, 1.2))
+        eye = torch.eye(3, device="cuda").expand(b, 3, 3).contiguous()
+        for name, ms, fl in (("bench ranges", bench, flip),
+                             ("identity", eye, None),
+                             ("strong translation", strong, flip)):
+            cases.append((f"{name} B={b} {tag}", img, ids, ms, fl))
+    return cases
+
+
+def check_warp(batches, gen) -> float:
+    """K7 against its plain version: bit-identical outputs in every case
+    (both read the same coefficients). Returns the largest difference."""
+    from rsis_tpu_torch.ops.warp import (affine_warp, nearest_index_maps,
+                                         warp_coefficients)
+    worst = 0.0
+    for b in batches:
+        for name, img, ids, ms, fl in warp_cases(b, gen):
+            got = affine_warp(img, ids, ms, fl)
+            want = affine_warp(img, ids, ms, fl, plain=True)
+            torch.cuda.synchronize()
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            worst = max(worst, err)
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            if name.startswith("identity"):
+                equal = equal and torch.equal(got[0], img) and torch.equal(
+                    got[1], ids)
+            idx = nearest_index_maps(warp_coefficients(img, ms, fl),
+                                     *TRAIN_HW)
+            rows, cols = idx // TRAIN_HW[1], idx % TRAIN_HW[1]
+            edge = ((rows == 0) | (rows == TRAIN_HW[0] - 1) | (cols == 0)
+                    | (cols == TRAIN_HW[1] - 1)).float().mean().item()
+            log(f"  K7 {name}: {'bit-identical' if equal else 'DIFFERS'} "
+                f"(max_abs_err {err:.3e}; {edge:.3f} of the pixels read "
+                f"the border)")
+            if not equal:
+                raise SystemExit(f"K7 {name}: kernel differs from its plain "
+                                 f"version")
+    return worst
+
+
+def time_warp(b: int, gen) -> dict:
+    """K7 at the train geometry (bf16 image, uint8 ids, bench ranges):
+    device ms of one launch against the plain version, the byte bound and
+    the library row: torch.gather of the image and of the id plane over a
+    precomputed index map (two calls; the index math is left out). Also
+    the whole augmentation block (id collapse, coefficients, K7, mask
+    expansion) on gt_maxseqlen 20 masks."""
+    from rsis_tpu_torch.data.device_aug import augment_wire_batch_with
+    from rsis_tpu_torch.ops.warp import (affine_warp_ref, nearest_index_maps,
+                                         warp_by_coefficients,
+                                         warp_coefficients)
+    name, img, ids, ms, fl = [c for c in warp_cases(b, gen)
+                              if c[0].startswith("bench") and "bf16" in c[0]
+                              ][0]
+    hh, ww = TRAIN_HW
+    coef = warp_coefficients(img, ms, fl)
+    ms_k = graph_ms(lambda: warp_by_coefficients(img, ids, coef), iters=20)
+    pms = graph_ms(lambda: affine_warp_ref(img, ids, coef), iters=5)
+    idx = nearest_index_maps(coef, hh, ww)
+    idx3 = idx[:, :, None].expand(b, hh * ww, 3)
+    img_flat, ids_flat = img.reshape(b, hh * ww, 3), ids.reshape(b, hh * ww)
+    lms = graph_ms(lambda: (torch.gather(img_flat, 1, idx3),
+                            torch.gather(ids_flat, 1, idx)), iters=20)
+    # each input read once, each output written once; ~10 fp32 operations
+    # of index math per pixel
+    bms, by = bound_ms(2 * nbytes(img, ids) + nbytes(coef),
+                       10.0 * b * hh * ww, torch.float32)
+    y_mask = (torch.randint(0, 21, (b, 1, hh * ww), generator=gen,
+                            device="cuda") == torch.arange(
+                                1, 21, device="cuda")[None, :, None]
+              ).to(torch.uint8)
+    block_ms = graph_ms(lambda: augment_wire_batch_with(img, y_mask, ms, fl),
+                        iters=5)
+    block_bytes = 2 * nbytes(img, y_mask)
+    log(f"  K7 warp {name}: {ms_k:.4f} ms (plain {pms:.4f}, library "
+        f"torch.gather x2 {lms:.4f} without the index math, bound "
+        f"{bms:.4f} by {by}); augmentation block {block_ms:.4f} ms "
+        f"(bound {block_bytes / HBM_BYTES_PER_S * 1e3:.4f} by bytes)")
+    return {"ms": ms_k, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+            "bound_by": by, "block_ms": block_ms,
+            "block_bound_ms": block_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def kernel_counters() -> dict:
@@ -381,18 +501,21 @@ def kernel_counters() -> dict:
     from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor
     from rsis_tpu_torch.ops.lap import solve_lap_batch
     from rsis_tpu_torch.ops.mask_head import mask_head_fused_kernel
+    from rsis_tpu_torch.ops.warp import warp_by_coefficients
     return {"fused_cell_rowmajor": fused_cell_rowmajor,
             "mask_head_fused_kernel": mask_head_fused_kernel,
             "conv3x3_rowmajor": conv3x3_rowmajor,
             "cell_backward_dgates": fcv.cell_backward_dgates,
             "weight_grad_rowmajor": fcv.weight_grad_rowmajor,
-            "solve_lap_batch": solve_lap_batch}
+            "solve_lap_batch": solve_lap_batch,
+            "warp_by_coefficients": warp_by_coefficients}
 
 
 def train_phase(args, out_dir) -> dict:
-    """Phase 4: the full-width train step through the kernels, timed, its
-    launches counted, its loss falling, and one step held against the
-    plain path on the card."""
+    """Phase 4: the full-width train step with device augmentation
+    through the kernels, timed, its launches counted, its loss falling,
+    one step held against the plain path on the card, and one step with
+    the three dropouts."""
     import numpy as np
     from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
     from rsis_tpu_torch.models.rsis import build_models
@@ -413,8 +536,9 @@ def train_phase(args, out_dir) -> dict:
     remat = ts._resolve_remat(cfg, T)
     train_step, _ = ts.make_train_step(cfg, T=T, remat=remat)
     state = ts.create_train_state(cfg, weights)
+    gen = cuda_generator(args.seed)
     t0 = time.perf_counter()
-    state, metrics = train_step(state, batch, flags)
+    state, metrics = train_step(state, batch, flags, gen)
     loss0 = metrics[0].item()
     log(f"train step warm-up: {time.perf_counter() - t0:.2f} s, loss "
         f"{loss0:.5f}")
@@ -426,7 +550,7 @@ def train_phase(args, out_dir) -> dict:
     losses = []
     t0 = time.perf_counter()
     for _ in range(TRAIN_ITERS):
-        state, metrics = train_step(state, batch, flags)
+        state, metrics = train_step(state, batch, flags, gen)
         losses.append(metrics[0])
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_ITERS * 1e3
@@ -435,7 +559,8 @@ def train_phase(args, out_dir) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     img_s = b / (step_ms / 1e3)
     log(f"train path: {TRAIN_ITERS} steps of B={b} at {hh}x{ww}, "
-        f"T={T}, bf16, remat {remat}, no augmentation: {step_ms:.3f} ms/step "
+        f"T={T}, bf16, remat {remat}, device augmentation: {step_ms:.3f} "
+        f"ms/step "
         f"= {img_s:.2f} img/s (host clock around synchronised steps); peak "
         f"{peak_gb:.2f} GB; losses {[round(x, 5) for x in losses]}; "
         f"launches {launches}")
@@ -443,22 +568,39 @@ def train_phase(args, out_dir) -> dict:
     want = {"fused_cell_rowmajor": 5 * T * rep * n,
             "mask_head_fused_kernel": T * rep * n,
             "conv3x3_rowmajor": 5 * T * n, "cell_backward_dgates": 5 * T * n,
-            "weight_grad_rowmajor": 5 * T * n, "solve_lap_batch": n}
+            "weight_grad_rowmajor": 5 * T * n, "solve_lap_batch": n,
+            "warp_by_coefficients": n}
     if launches != want:
         raise SystemExit(f"train launch counts {launches} != expected {want}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"the train loss does not fall: {losses}")
     profile = None
     if args.profile:
-        profile = profile_call(lambda: train_step(state, batch, flags),
+        profile = profile_call(lambda: train_step(state, batch, flags, gen),
                                out_dir, "train_step")
     del state
 
-    # the same weights and batch through the plain path on the card
+    # one step with the three dropouts: the plain decoder under autograd,
+    # its dropouts drawing from the CUDA generator after the augmentation
+    cfg_drop = cfg.replace(dropout=0.2, dropout_cls=0.2, dropout_stop=0.2)
+    step_drop, _ = ts.make_train_step(cfg_drop, T=T, remat=remat)
+    state = ts.create_train_state(cfg_drop, weights)
+    t0 = time.perf_counter()
+    _, m_drop = step_drop(state, batch, flags, cuda_generator(args.seed))
+    drop_loss = m_drop[0].item()
+    log(f"dropout step (0.2 each, plain decoder): loss {drop_loss:.5f} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not np.isfinite(drop_loss):
+        raise SystemExit(f"the dropout step's loss is {drop_loss}")
+    del state
+
+    # the same weights and batch through the plain path on the card; both
+    # draw the same flips and matrices from generators of one seed
     def loss_grads(cfg_, batch_, T_, plain):
         st = ts.create_train_state(cfg_, weights)
-        total, _, grads = ts.loss_and_grads(cfg_, st, batch_, flags, T_,
-                                            plain=plain)
+        total, _, grads = ts.loss_and_grads(
+            cfg_, st, batch_, flags, T_, plain=plain,
+            rng=cuda_generator(args.seed + 1))
         return total.item(), grads
 
     def check_grads(tag, g_k, g_p, unit, limits):
@@ -514,7 +656,130 @@ def train_phase(args, out_dir) -> dict:
             "ms_per_step": step_ms, "images_per_s": img_s, "peak_gb": peak_gb,
             "losses": losses, "launches": launches,
             "bf16_loss_rel_err": bf16_rel,
-            "bf16_grad_worst_ulps": bf16_grad, "profile": profile}
+            "bf16_grad_worst_ulps": bf16_grad, "dropout_step_loss": drop_loss,
+            "profile": profile}
+
+
+def trainer_phase(args, out_dir) -> dict:
+    """Phase 4b: ``python -m rsis_tpu_torch.cli.train`` at full width on
+    the synthetic dataset, 2 epochs, then resumed; checks the log, the
+    checkpoint and the metrics, and times the loop against its step."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from rsis_tpu_torch.cli.train import main as train_main
+    from rsis_tpu_torch.config import Config
+    from rsis_tpu_torch.train import step as ts
+    from rsis_tpu_torch.train.loop import init_dataloaders
+    from rsis_tpu_torch.ops.warp import warp_by_coefficients
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_models_",
+                            dir=os.path.join(here, "build"))
+    b = 8
+    argv = ["-dataset", "synthetic", "-base_model", "resnet101",
+            "-hidden_size", "128", "-num_classes", "9",
+            "-compute_dtype", "bfloat16", "-imsize", "256",
+            "-batch_size", str(b), "-synthetic_length", "16",
+            "--augment", "--curriculum_learning", "-max_epoch", "2",
+            "-print_every", "1", "-seed", str(args.seed),
+            "-models_root", root, "-model_name", "smoke"]
+    d = os.path.join(root, "smoke")
+
+    def read(name):
+        with open(os.path.join(d, name)) as fp:
+            return fp.read()
+
+    def headers(text):
+        return [int(ln.split()[1]) for ln in text.splitlines()
+                if ln.startswith("Epoch ") and ":" not in ln]
+
+    try:
+        t0 = time.perf_counter()
+        train_main(argv)
+        first_s = time.perf_counter() - t0
+        log1 = read("train.log")
+        files = ["encoder.pt", "decoder.pt", "optim.pt", "args.json"]
+        missing = [f for f in files if not os.path.exists(
+            os.path.join(d, f))]
+        if headers(log1) != [0, 1] or "Saving checkpoint." not in log1 \
+                or log1.count("(val)") != 2 or missing:
+            raise SystemExit(f"trainer: epochs {headers(log1)}, missing "
+                             f"files {missing}; log:\n{log1[-2000:]}")
+        first_recs = [json.loads(ln) for ln in
+                      read("metrics.jsonl").splitlines()]
+        n_metrics = len(first_recs)
+        saved = Config.load(os.path.join(d, "args.json"))
+
+        warp_by_coefficients.launches = 0
+        t0 = time.perf_counter()
+        state = train_main(argv + ["--resume"])
+        resume_s = time.perf_counter() - t0
+        launches = warp_by_coefficients.launches
+        log2 = read("train.log")[len(log1):]
+        records = [json.loads(ln) for ln in
+                   read("metrics.jsonl").splitlines()[n_metrics:]]
+        train_recs = [r for r in records if r["split"] == "train"]
+        resumed = headers(log2)
+        # the saved config (2 epochs) takes precedence; the run restarts
+        # at the checkpointed epoch, as the reference's epoch_resume does
+        want = [saved.epoch_resume + e for e in range(saved.max_epoch)]
+        if resumed != want or not train_recs or launches != len(train_recs):
+            raise SystemExit(f"resumed trainer: epochs {resumed} (want "
+                             f"{want}), {len(train_recs)} train records, "
+                             f"{launches} K7 launches; log:\n{log2[-2000:]}")
+        # the loop's time per train step: consecutive train batches of an
+        # epoch in both runs, data loading and logging included
+        gaps = [b2["t"] - b1["t"]
+                for recs in (first_recs, records)
+                for b1, b2 in zip(recs, recs[1:])
+                if b1["split"] == b2["split"] == "train"
+                and b1["epoch"] == b2["epoch"]]
+        loop_ms = 1e3 * sum(gaps) / len(gaps)
+        # over the whole resumed call: model build, data, checkpoints
+        run_img_s = b * len(records) / resume_s
+        # the step alone on one of the loop's batches, at the loop's T
+        cfg = Config.load(os.path.join(d, "args.json"))
+        T = min(cfg.maxseqlen, cfg.limit_seqlen_to)
+        loaders = init_dataloaders(cfg)
+        batch = [torch.from_numpy(a).cuda() for a in next(iter(
+            loaders["train"]))]
+        step, _ = ts.make_train_step(cfg, T=T)
+        flags = ts.StepFlags.from_config(cfg)
+        gen = cuda_generator(args.seed)
+        state, _ = step(state, batch, flags, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            state, metrics = step(state, batch, flags, gen)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TRAIN_ITERS * 1e3
+        log(f"trainer: 2 epochs in {first_s:.2f} s, resumed at epoch "
+            f"{resumed[0]} for epochs {resumed} in {resume_s:.2f} s "
+            f"({len(records)} batches of {b} at 256x256, T={T}, bf16, "
+            f"augmentation on; {launches} K7 launches); loop "
+            f"{loop_ms:.3f} ms per train step = {b / loop_ms * 1e3:.2f} "
+            f"img/s (data loading included, {len(gaps)} gaps); "
+            f"{run_img_s:.2f} img/s over the whole resumed call (model "
+            f"build, data, val and checkpoints included); the step alone "
+            f"{step_ms:.3f} ms = {b / step_ms * 1e3:.2f} img/s")
+        del state
+        profile = None
+        if args.profile:
+            # no trace file: seconds of host work make it too large
+            profile = profile_call(lambda: train_main(argv + ["--resume"]),
+                                   None, "trainer_resume")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not np.isfinite(loop_ms):
+        raise SystemExit("trainer: no loop time")
+    return {"first_run_s": first_s, "resume_s": resume_s,
+            "resumed_epochs": resumed, "batches": len(records), "T": T,
+            "k7_launches": launches, "loop_ms_per_train_step": loop_ms,
+            "loop_images_per_s": b / loop_ms * 1e3,
+            "resumed_call_images_per_s": run_img_s, "step_ms": step_ms,
+            "step_images_per_s": b / step_ms * 1e3, "profile": profile}
 
 
 def time_backward_kernels(cell_geoms, b, gen) -> dict:
@@ -719,6 +984,7 @@ def main() -> int:
     lap_err = check_lap(gen)
     cell_bwd_ulps = check_cell_backward(train_geoms, tb, gen)
     log(f"  cell backward bf16: worst {cell_bwd_ulps:.3f} bf16 ulps")
+    warp_err = check_warp(sorted({8, tb}), gen)
 
     # ---- 3. the inference path -----------------------------------------
     cfg = Config(base_model="resnet101", hidden_size=hidden, num_classes=9,
@@ -796,6 +1062,7 @@ def main() -> int:
 
     # ---- 4. the training path ------------------------------------------
     train = train_phase(args, out_dir)
+    trainer = trainer_phase(args, out_dir)
 
     # ---- 5. timings ----------------------------------------------------
     encoder = enc_p
@@ -853,6 +1120,7 @@ def main() -> int:
         f"bound {k2_bms:.4f} by {k2_by})")
     bwd = time_backward_kernels(train_geoms, tb, gen)
     lap = time_lap(tb, args.train_steps, 20, gen)
+    warp = time_warp(tb, gen)
     tl = train["launches"]
 
     def bwd_row(key, name, source, replaces):
@@ -891,6 +1159,13 @@ def main() -> int:
          "ms": lap["ms"], "plain_ms": lap["plain_ms"],
          "bound_ms": lap["bound_ms"], "bound_by": lap["bound_by"],
          "library_ms": None},
+        {"name": "warp_by_coefficients", "route": "cuda",
+         "source": "rsis_tpu_torch/csrc/warp.cu",
+         "replaces": "rsis_tpu/ops/pallas_warp.py:437",
+         "launches": tl["warp_by_coefficients"], "max_abs_err": warp_err,
+         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
+         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
+         "library_ms": warp["library_ms"]},
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -904,14 +1179,16 @@ def main() -> int:
                        "main_err": main_err, "k1_cells": k1["cells"],
                        "cell_bwd_bf16_ulps": cell_bwd_ulps,
                        "train": train, "train_batch": tb,
+                       "trainer": trainer, "warp": warp,
                        "backward_cells": {k: v["cells"]
                                           for k, v in bwd.items()},
                        "lap": lap, "kernels": kernels}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"device times (CUDA-graph replay): K1 ms is one decode step's five "
         f"launches at B={b}, K2 ms one launch; K3, K4 and K5 ms one decode "
-        f"step's five launches at B={tb}, K6 ms one launch; launches of K1 "
-        f"and K2 are from the inference path, of K3-K6 from the train path")
+        f"step's five launches at B={tb}, K6 and K7 ms one launch; launches "
+        f"of K1 and K2 are from the inference path, of K3-K7 from the train "
+        f"path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ The JAX package ``rsis_tpu`` is the reference this package is held
 against; nothing here imports it. Module names follow their JAX
 counterparts (``models/rsis.py`` ports ``rsis_tpu/models/rsis.py`` and so
 on). Model modules compute in NCHW; the decode loop and the cell kernels'
-wrappers keep the reference's (B, H, C, W) layout. Two slices are ported:
-the inference forward (``evals/forward.py``) and the training step
-(``train/step.py``).
+wrappers keep the reference's (B, H, C, W) layout. Three slices are
+ported: the inference forward (``evals/forward.py``), the training step
+(``train/step.py``) and the trainer (``cli/train.py``, ``train/loop.py``,
+with device augmentation in ``data/device_aug.py``).
 
 Kernel wrappers dispatch on the device of the tensors they are given: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the

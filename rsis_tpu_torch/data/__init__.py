@@ -1,1 +1,2 @@
-"""Data for the port: seeded synthetic wire batches."""
+"""Data for the port: the host pipeline (catalogs, packed targets, the
+loader), the device augmentation and seeded synthetic wire batches."""

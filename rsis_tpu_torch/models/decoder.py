@@ -5,10 +5,18 @@ Counterpart of ``rsis_tpu/models/decoder.py`` (``decoder_widths``,
 (align_corners) to the next skip scale and fused with that skip
 (concat/sum/mul/none); the finest state is upsampled 2x and projected to
 one channel of mask logits; the global max of every cell's state feeds
-``fc_class`` and ``fc_stop``. Inference only: no dropout. This is the
-plain decode and the only path for skip_mode "mul"; the other modes go
-through ``models/rowmajor_decoder.py`` and its kernels. Parameters stay
-fp32 and are cast to the input's dtype at use, as the flax modules do.
+``fc_class`` and ``fc_stop``. In training mode (``module.train()``) the
+three dropouts of the reference act: ``dropout`` zeroes whole channels of
+each cell's hidden state (one draw per image and channel, kept over H and
+W as flax's ``broadcast_dims=(1, 2)``) before its global max and its
+upsample, ``dropout_cls`` and ``dropout_stop`` act on the concatenated
+side features before each head; in eval mode all three are identity.
+Their random numbers come from the ``generator`` passed to ``forward``,
+never from torch's global state. This is the plain decode: the only path
+for skip_mode "mul" and for a training step that needs dropout; the other
+cases go through ``models/rowmajor_decoder.py`` and its kernels.
+Parameters stay fp32 and are cast to the input's dtype at use, as the flax
+modules do.
 """
 
 from __future__ import annotations
@@ -47,14 +55,33 @@ def _linear(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
     return F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            keep_shape) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each entry of a ``keep_shape`` draw
+    (broadcast over x) with probability 1 - rate and scale the kept ones
+    by 1 / (1 - rate)."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    draw = torch.rand(keep_shape, generator=generator,
+                      device=generator.device)
+    keep = (draw < keep_prob).to(x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class RSISDecoder(nn.Module):
     def __init__(self, hidden_size: int = 128, num_classes: int = 21,
-                 kernel_size: int = 3, skip_mode: str = "concat"):
+                 kernel_size: int = 3, skip_mode: str = "concat",
+                 dropout: float = 0.0, dropout_cls: float = 0.0,
+                 dropout_stop: float = 0.0):
         super().__init__()
         if skip_mode not in SKIP_MODES:
             raise ValueError(f"unsupported skip_mode {skip_mode!r}")
         self.hidden_size = hidden_size
         self.skip_mode = skip_mode
+        self.dropout = dropout
+        self.dropout_cls = dropout_cls
+        self.dropout_stop = dropout_stop
         widths = decoder_widths(hidden_size)
         skips = skip_widths(hidden_size)
         cells = []
@@ -72,13 +99,25 @@ class RSISDecoder(nn.Module):
         self.fc_class = nn.Linear(sum(widths), num_classes)
         self.fc_stop = nn.Linear(sum(widths), 1)
 
-    def forward(self, skips: Sequence[torch.Tensor], carry=None):
+    def needs_generator(self) -> bool:
+        """Whether ``forward`` draws random numbers (training mode with a
+        dropout rate above 0)."""
+        return self.training and (self.dropout > 0 or self.dropout_cls > 0
+                                  or self.dropout_stop > 0)
+
+    def forward(self, skips: Sequence[torch.Tensor], carry=None,
+                generator: torch.Generator | None = None):
         """One decode step.
 
         skips: 5 skip features (x5..x1, NCHW); carry: the state pyramid
-        of the previous step, or None for zeros. Returns
-        ((mask_logits (B, 1, 2H1, 2W1), class_probs (B, K),
+        of the previous step, or None for zeros; generator: the source of
+        the dropouts' random numbers, needed when ``needs_generator()``.
+        Returns ((mask_logits (B, 1, 2H1, 2W1), class_probs (B, K),
         stop_logits (B, 1)), new_carry)."""
+        if self.needs_generator() and generator is None:
+            raise ValueError("decoder dropout in training mode needs a "
+                             "torch.Generator")
+        train = self.training
         if carry is None:
             carry = init_carry(skips, self.hidden_size)
         clstm_in = skips[0]
@@ -87,6 +126,9 @@ class RSISDecoder(nn.Module):
         for i, cell in enumerate(self.clstm_list):
             hidden, state = cell(clstm_in, carry[i])
             new_carry.append(state)
+            if train and self.dropout > 0:
+                hidden = dropout(hidden, self.dropout, generator,
+                                 hidden.shape[:2] + (1, 1))
             side_feats.append(hidden.amax(dim=(2, 3)))
             if i + 1 < n:
                 nxt = skips[i + 1]
@@ -108,7 +150,12 @@ class RSISDecoder(nn.Module):
                                self.conv_out.bias.to(dt),
                                padding=self.conv_out.padding)
         feats = torch.cat(side_feats, dim=-1)
-        class_probs = torch.softmax(
-            _linear(feats, self.fc_class), dim=-1)
-        stop_logits = _linear(feats, self.fc_stop)
+        cls_in, stop_in = feats, feats
+        if train and self.dropout_cls > 0:
+            cls_in = dropout(feats, self.dropout_cls, generator, feats.shape)
+        if train and self.dropout_stop > 0:
+            stop_in = dropout(feats, self.dropout_stop, generator,
+                              feats.shape)
+        class_probs = torch.softmax(_linear(cls_in, self.fc_class), dim=-1)
+        stop_logits = _linear(stop_in, self.fc_stop)
         return (mask_logits, class_probs, stop_logits), tuple(new_carry)

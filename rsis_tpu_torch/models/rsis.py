@@ -35,7 +35,9 @@ def build_models(cfg: Config) -> Tuple[FeatureExtractor, RSISDecoder]:
     decoder = RSISDecoder(hidden_size=cfg.hidden_size,
                           num_classes=cfg.num_classes,
                           kernel_size=cfg.kernel_size,
-                          skip_mode=cfg.skip_mode)
+                          skip_mode=cfg.skip_mode, dropout=cfg.dropout,
+                          dropout_cls=cfg.dropout_cls,
+                          dropout_stop=cfg.dropout_stop)
     return encoder.eval(), decoder.eval()
 
 

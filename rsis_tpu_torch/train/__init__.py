@@ -1,1 +1,2 @@
-"""The training step of the port: state, losses, matcher, optimizers."""
+"""Training in the port: the step (state, losses, matcher, optimizers),
+checkpoints and the epoch loop."""

@@ -5,6 +5,9 @@ Counterpart of ``rsis_tpu/train/step.py`` (``TrainState``, ``StepFlags``,
 One step:
 
   - the uint8 wire batch is normalised and unpacked on the device;
+  - with ``cfg.augment`` (and ``augment_on_device``) the images and masks
+    are flipped and warped on the device (``data/device_aug.py``, the warp
+    kernel K7), from the step's ``torch.Generator``;
   - the encoder runs once in train mode (BatchNorm on batch statistics,
     running statistics updated as flax does), under bf16 autocast when the
     compute dtype is bf16; parameters stay fp32;
@@ -12,8 +15,11 @@ One step:
     convolutions go through the kernels (``models/rowmajor_decoder.py``:
     K1 and K2 forward, K4, K5 and K3 in the cells' backward); "mul" and
     other kernel sizes train the plain ``RSISDecoder`` under autograd.
-    Each step's soft-IoU cost column against every GT mask is computed
-    without gradient; the outputs stay time-major (T, B, ...);
+    A training step with a dropout rate above 0 takes the plain decoder,
+    whose dropouts draw from the same generator after the augmentation,
+    as JAX routes it. Each step's soft-IoU cost column against every GT
+    mask is computed without gradient; the outputs stay time-major
+    (T, B, ...);
   - the (B, N, T) costs, with invalid pairs set to 10, are solved by the
     batched LAP (K6 on the card) and the GT is gathered in that order;
   - total = iou_weight * iou + use_class_loss * class_weight * class +
@@ -35,6 +41,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..config import Config
+from ..data.device_aug import augment_wire_batch, zoom_range_for
 from ..device import resolve_device
 from ..models.decoder import RSISDecoder
 from ..models.encoder import FeatureExtractor
@@ -144,12 +151,14 @@ def _resolve_remat(cfg: Config, T: int) -> bool:
 
 
 def _forward_with_costs(cfg: Config, encoder, decoder, x, y_mask, T: int,
-                        remat: bool = False, plain: bool = False):
+                        remat: bool = False, plain: bool = False,
+                        rng: torch.Generator | None = None):
     """Encoder once and T decode steps, each with its cost column.
 
-    Returns masks (T, B, HW) logits in the compute dtype, class_probs
-    (T, B, K) fp32, stop_logits (T, B) fp32 and costs (B, N, T) fp32
-    (no gradient)."""
+    rng feeds the decoder's dropouts when it needs one (training mode,
+    a rate above 0); the steps then take the plain decoder. Returns masks
+    (T, B, HW) logits in the compute dtype, class_probs (T, B, K) fp32,
+    stop_logits (T, B) fp32 and costs (B, N, T) fp32 (no gradient)."""
     dtype = compute_dtype(cfg)
     h, w = x.shape[1], x.shape[2]
     with torch.autocast(x.device.type, dtype=torch.bfloat16,
@@ -168,7 +177,8 @@ def _forward_with_costs(cfg: Config, encoder, decoder, x, y_mask, T: int,
             cost_col = soft_iou_cost_matmul(y_sum, y_cost, mask_flat)
         return mask_flat, cls.float(), stop[:, 0].float(), cost_col
 
-    if cfg.skip_mode in CHANNEL_SEPARABLE and cfg.kernel_size == 3:
+    if (cfg.skip_mode in CHANNEL_SEPARABLE and cfg.kernel_size == 3
+            and not decoder.needs_generator()):
         cells = _hoist_cells_rowmajor(decoder, skips, cfg.skip_mode, dtype)
         carry = init_carry_rowmajor(skips, decoder.hidden_size, dtype)
         head = mask_head_ref if plain else MaskHeadFunction.apply
@@ -183,11 +193,11 @@ def _forward_with_costs(cfg: Config, encoder, decoder, x, y_mask, T: int,
         carry = None
 
         def step(carry):
-            (mask, cls, stop), carry = decoder(skips, carry)
+            (mask, cls, stop), carry = decoder(skips, carry, generator=rng)
             return outputs(mask[:, 0], cls, stop), carry
 
     if remat:
-        step = _checkpointed(step)
+        step = _checkpointed(step, rng if decoder.needs_generator() else None)
     outs = []
     for _ in range(T):
         out, carry = step(carry)
@@ -197,11 +207,19 @@ def _forward_with_costs(cfg: Config, encoder, decoder, x, y_mask, T: int,
             torch.stack(costs, dim=-1))
 
 
-def _checkpointed(step):
+def _checkpointed(step, rng: torch.Generator | None = None):
     """The decode step under activation checkpointing: its forward runs
-    again in the backward (K1 and K2 launch twice per step)."""
+    again in the backward (K1 and K2 launch twice per step). With rng (the
+    dropouts' generator), the recomputed step draws what the first run
+    drew: rng's state before the step is saved and restored for it."""
     def run(carry):
-        return torch.utils.checkpoint.checkpoint(step, carry,
+        saved = None if rng is None else rng.get_state()
+
+        def replay(carry):
+            if saved is not None:
+                rng.set_state(saved)
+            return step(carry)
+        return torch.utils.checkpoint.checkpoint(replay, carry,
                                                  use_reentrant=False)
     return run
 
@@ -246,9 +264,12 @@ def _losses(cfg: Config, masks, clss, stops, costs, y_mask, y_class,
 
 def loss_and_grads(cfg: Config, state: TrainState, batch, flags: StepFlags,
                    T: int, remat: bool = False, plain: bool = False,
-                   device=None):
+                   device=None, rng: torch.Generator | None = None):
     """Forward and backward of one train step without the update, on
     ``device`` (default: the state's).
+
+    rng: the step's ``torch.Generator``, needed with device augmentation
+    or dropout: the augmentation draws from it first, then the dropouts.
 
     Returns (total, (iou, stop, class), grads): grads maps every parameter
     name of ``state.params()`` to its gradient (zeros where the loss does
@@ -260,15 +281,28 @@ def loss_and_grads(cfg: Config, state: TrainState, batch, flags: StepFlags,
     if device is None:
         device = next(state.decoder.parameters()).device
     x, y_mask, y_class, sw_mask, sw_class = decode_batch(cfg, batch, device)
+    if (cfg.augment and cfg.augment_on_device
+            or state.decoder.needs_generator()) and rng is None:
+        raise ValueError("device augmentation and dropout draw from the "
+                         "step's rng: pass a torch.Generator")
+    if cfg.augment and cfg.augment_on_device:
+        x, y_mask = augment_wire_batch(
+            rng, x, y_mask, cfg.rotation, cfg.translation, cfg.shear,
+            zoom_range_for(cfg), plain=plain)
     masks, clss, stops, costs = _forward_with_costs(
         cfg, state.encoder, state.decoder, x, y_mask, T, remat=remat,
-        plain=plain)
+        plain=plain, rng=rng)
     total, parts = _losses(cfg, masks, clss, stops, costs, y_mask, y_class,
                            sw_mask, sw_class, flags,
                            functools.partial(hungarian, plain=plain))
     params = state.params()
+    # the backward's recomputed dropouts rewind rng; leave it where the
+    # forward left it
+    after_forward = rng.get_state() if remat and rng is not None else None
     grads = torch.autograd.grad(total, list(params.values()),
                                 allow_unused=True)
+    if after_forward is not None:
+        rng.set_state(after_forward)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)}
     return total.detach(), tuple(p.detach() for p in parts), grads
@@ -284,18 +318,13 @@ def make_train_step(cfg: Config, T: Optional[int] = None, device=None,
       eval_step(state, batch, flags, rng=None) -> metrics
     with metrics = [total, iou, stop, class] (fp32, on the device), batch
     the uint8 wire pair or the 5-tuple of ``decode_batch``. train_step
-    updates ``state`` in place and returns it. rng is accepted for the JAX
-    signature and unused: nothing in this slice draws random numbers.
-    ``device`` (default cuda; raises without a card) is where the batches
-    go and must hold the state. ``remat=None`` resolves from cfg.remat."""
-    if cfg.augment:
-        raise NotImplementedError(
-            "cfg.augment: device augmentation (the affine warp kernel K7, "
-            "data/device_aug) comes with the next slice of the port")
-    if cfg.dropout or cfg.dropout_stop or cfg.dropout_cls:
-        raise NotImplementedError(
-            "decoder dropout is not in the port yet (ROADMAP.md, the "
-            "training slice after device augmentation)")
+    updates ``state`` in place and returns it. rng is the step's
+    ``torch.Generator`` (best on the step's device): train_step needs one
+    when cfg.augment (on the device) or a dropout rate is set, draws the
+    augmentation from it and then the dropouts, and advances it;
+    eval_step draws nothing. ``device`` (default cuda; raises without a
+    card) is where the batches go and must hold the state. ``remat=None``
+    resolves from cfg.remat."""
     device = resolve_device(device, "make_train_step")
     T = T or cfg.maxseqlen
     if remat is None:
@@ -303,7 +332,7 @@ def make_train_step(cfg: Config, T: Optional[int] = None, device=None,
 
     def train_step(state: TrainState, batch, flags: StepFlags, rng=None):
         total, (loss_iou, loss_stop, loss_class), grads = loss_and_grads(
-            cfg, state, batch, flags, T, remat=remat, device=device)
+            cfg, state, batch, flags, T, remat=remat, device=device, rng=rng)
         # gate closed: the backbone and its optimizer state stay as they
         # were (its BatchNorm statistics still move)
         state.enc_opt, state.dec_opt = update_groups(

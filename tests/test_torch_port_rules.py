@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps:
 
-- nothing in rsis_tpu_torch/, and not chip_smoke.py, imports jax, flax or
-  rsis_tpu: the port keeps its own copies of what it needs;
+- nothing in rsis_tpu_torch/, and neither chip_smoke.py nor
+  chip_bf16_gap.py, imports jax, flax or rsis_tpu: the port keeps its own
+  copies of what it needs;
 - an entry point asked for no device runs on CUDA, and raises where there
   is none, instead of running on the CPU;
 - importing the kernel modules needs no nvcc and compiles nothing: kernels
@@ -24,7 +25,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rsis_tpu"}
 
 def _port_files():
     files = sorted((ROOT / "rsis_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_bf16_gap.py"]
 
 
 def _imported_roots(path: Path):
@@ -72,6 +73,20 @@ def test_make_train_step_without_device_needs_cuda():
         create_train_state(cfg)
 
 
+def test_trainer_and_cli_train_without_device_need_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is usable")
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.cli.train import main
+    from rsis_tpu_torch.train.loop import Trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(Config(base_model="tiny", hidden_size=16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-dataset", "synthetic", "-base_model", "tiny",
+              "-models_root", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
 def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
     code = (
         "import subprocess\n"
@@ -85,6 +100,8 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
         "import rsis_tpu_torch.ops.fused_cell_vjp\n"
         "import rsis_tpu_torch.ops.matching\n"
         "import rsis_tpu_torch.train.step, rsis_tpu_torch.data.synthetic\n"
+        "import rsis_tpu_torch.ops.warp, rsis_tpu_torch.data.device_aug\n"
+        "import rsis_tpu_torch.train.loop, rsis_tpu_torch.cli.train\n"
         "assert b.load.cache_info().currsize == 0\n"
         "try:\n"
         "    b._nvcc()\n"
@@ -130,6 +147,7 @@ def test_training_wrappers_do_not_fall_back_off_the_cpu():
                                                    weight_grad_rowmajor)
     from rsis_tpu_torch.ops.lap import solve_lap_batch
     from rsis_tpu_torch.ops.mask_head import MaskHeadFunction
+    from rsis_tpu_torch.ops.warp import affine_warp
     meta = dict(device="meta")
     ops, (dh, dc) = _meta_cell()
     calls = [
@@ -138,6 +156,9 @@ def test_training_wrappers_do_not_fall_back_off_the_cpu():
         lambda: conv3x3_rowmajor(ops[3], torch.empty(4, 144, **meta),
                                  cin=16, cout=4),                      # K3
         lambda: solve_lap_batch(torch.empty(2, 3, 5, **meta)),         # K6
+        lambda: affine_warp(torch.empty(1, 4, 6, 3, **meta),           # K7
+                            torch.empty(1, 4, 6, dtype=torch.uint8, **meta),
+                            torch.eye(3, **meta)[None]),
         lambda: FusedCellFunction.apply(*ops, 0, 4),
         lambda: MaskHeadFunction.apply(torch.empty(1, 2, 4, 3, **meta),
                                        torch.empty(1, 4, 3, 3, **meta),
