@@ -3,11 +3,14 @@
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the build of all seven kernels in ``rsis_tpu_torch/csrc`` (one
-     nvcc per source, all started together);
+     the build of all eight kernels in ``rsis_tpu_torch/csrc`` (one nvcc
+     per source, all started together) and of the host RLE library
+     (``rsis_tpu_torch/kernels/rle``, g++);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, in float32 (TF32 off) and bfloat16:
-     the forward kernels K1 and K2 at the inference geometry, the backward
+     the forward kernels K1 and K2 at the inference geometry, the
+     ConvLSTM step K8 at the mul decode's five cells and an odd H, the
+     backward
      kernels K4, K5 and K3 at the train step's five cells, the LAP
      matcher K6 on random and tie-heavy costs, the cell's whole backward
      (K4 + K5 + K3) against autograd through the plain cell, and the
@@ -19,6 +22,16 @@ Phases, each fatal on failure:
      --seed) answering a few batches, with K1's and K2's launch counts
      read from that run and the outputs held against the port's plain path
      on the card (and, in float32 at T=2, against a tighter tolerance);
+  3b. the same with mul skips (the plain decode, whose cells run K8): K8
+     launched 5 T times a forward, K1 and K2 never, the outputs held
+     against the plain path, images per second;
+  3c. the evaluation entry points in process on the card:
+     ``cli.eval_cityscapes`` (2 images at 1024x2048, input 512x1024,
+     T=20, built-in AP), ``cli.eval_leaves`` (CVPPP A1), ``cli.eval``
+     (Pascal, COCO stats) and ``cli.predict``, on trees and full-width
+     checkpoints (concat and mul) written under build/ from --seed: their
+     outputs, finite scores and launches per forward checked, wall time
+     per image and the forward's share of it;
   4. the training path: ``make_train_step`` at full width (the same model,
      256x512, gt_maxseqlen 20, bfloat16, device augmentation on as in the
      JAX bench, all three step flags on) on one synthetic uint8 wire batch
@@ -39,8 +52,8 @@ Phases, each fatal on failure:
      synchronised calls; each kernel's device time (CUDA-graph replay)
      against its plain version's, its bound and, where one exists, the
      PyTorch library call for the same function; with --profile, device
-     time by operation and the idle share of one forward, one step and a
-     resumed trainer run.
+     time by operation and the idle share of one forward, one step, a
+     resumed trainer run and the Cityscapes evaluation.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -872,6 +885,400 @@ def time_lap(b: int, T: int, n: int, gen) -> dict:
             "scans": stats["scans"]}
 
 
+def mul_geoms(height: int, width: int, widths) -> list:
+    """(H, W, Cx, C) of the five cells of the mul decode at one input
+    size: cell 0 reads the coarsest skip (width widths[0]), cell i the
+    upsampled state of cell i - 1 times skip i (width widths[i - 1])."""
+    return [(height // 2 ** (5 - i), width // 2 ** (5 - i),
+             widths[i - 1] if i else widths[0], ch)
+            for i, ch in enumerate(widths)]
+
+
+def clstm_inputs(geom, b, dtype, gen):
+    """Random K8 operands (x, h_prev, c_prev, weight, bias) at one cell
+    geometry (H, W, Cx, C), NCHW."""
+    h, w, cx, ch = geom
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    weight = rnd(4 * ch, cx + ch, 3, 3, scale=(1.0 / (9 * (cx + ch))) ** 0.5)
+    bias = torch.randn(4 * ch, generator=gen, device="cuda") * 0.1
+    return (rnd(b, cx, h, w), rnd(b, ch, h, w), rnd(b, ch, h, w), weight,
+            bias)
+
+
+def check_clstm(geoms, b, gen) -> float:
+    """K8 against its plain version at the mul decode's five cells and at
+    an odd H (the JAX kernel rejects odd H): fp32 (TF32 off) within
+    FP32_TOL, bf16 within one bf16 ulp of max|ref| on h and on c. Returns
+    the worst bf16 error."""
+    from rsis_tpu_torch.ops.clstm_step import clstm_step, clstm_step_ref
+    worst = 0.0
+    cases = [(g, b) for g in geoms] + [((17, 40, 16, 8), 2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for geom, bb in cases:
+            ops = clstm_inputs(geom, bb, dtype, gen)
+            got = clstm_step(*ops)
+            want = clstm_step_ref(*ops)
+            torch.cuda.synchronize()
+            for nm, g, w in zip(("h", "c"), got, want):
+                err = max_err(g, w)
+                check(f"K8 {geom} B={bb} {tag} {nm}", err, tol_for(dtype, w))
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+    return worst
+
+
+def time_clstm(geoms, b, gen) -> dict:
+    """K8 at the mul decode's five cells (bf16): device ms of one decode
+    step's five launches against the plain version and the bound (each
+    input read and each output written once; 2 * 4C * 9(Cx+C) operations
+    a pixel)."""
+    from rsis_tpu_torch.ops.clstm_step import clstm_step, clstm_step_ref
+    dtype = torch.bfloat16
+    out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
+           "ops": 0.0, "cells": []}
+    for i, geom in enumerate(geoms):
+        hh, ww, cx, ch = geom
+        ops = clstm_inputs(geom, b, dtype, gen)
+        ms = graph_ms(lambda: clstm_step(*ops), iters=20)
+        pms = graph_ms(lambda: clstm_step_ref(*ops), iters=5)
+        n_b = nbytes(*ops) + 2 * nbytes(ops[1])
+        n_ops = 2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww
+        bms, by = bound_ms(n_b, n_ops, dtype)
+        out["cells"].append({"cell": i, "geom": list(geom), "ms": ms,
+                             "plain_ms": pms, "bound_ms": bms,
+                             "bound_by": by})
+        for key, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
+                         ("bytes", n_b), ("ops", n_ops)):
+            out[key] += val
+        log(f"  K8 cell{i} {geom} B={b}: {ms:.4f} ms (plain {pms:.4f}, "
+            f"bound {bms:.4f} by {by})")
+    out["bound_by"] = bound_ms(out["bytes"], out["ops"], dtype)[1]
+    return out
+
+
+def forward_counters() -> dict:
+    """The kernel wrappers of the inference forward."""
+    from rsis_tpu_torch.ops.clstm_step import clstm_step
+    from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor
+    from rsis_tpu_torch.ops.mask_head import mask_head_fused_kernel
+    return {"fused_cell_rowmajor": fused_cell_rowmajor,
+            "mask_head_fused_kernel": mask_head_fused_kernel,
+            "clstm_step": clstm_step}
+
+
+def forward_launches(skip_mode: str, T: int, n: int) -> dict:
+    """Launches of n forwards of T steps: K1 and K2 for the channel-
+    separable skips, K8 for mul."""
+    if skip_mode == "mul":
+        return {"fused_cell_rowmajor": 0, "mask_head_fused_kernel": 0,
+                "clstm_step": 5 * T * n}
+    return {"fused_cell_rowmajor": 5 * T * n,
+            "mask_head_fused_kernel": T * n, "clstm_step": 0}
+
+
+def mul_forward_phase(args, xs) -> dict:
+    """Phase 3b: ``make_forward`` at full width with mul skips (resnet101,
+    hidden 128, 9 classes, 512x1024, bf16, random weights from --seed) on
+    the batches xs, K8's launches read from that run (5 T per forward, K1
+    and K2 none), the outputs held against the plain path on the card and
+    the images per second (with --profile, device time by operation and
+    the idle share of one forward)."""
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.evals.forward import make_forward
+    from rsis_tpu_torch.models.rsis import build_models, forward
+
+    T = args.steps
+    b, height, width = xs[0].shape[:3]
+    cfg = Config(base_model="resnet101", hidden_size=128, num_classes=9,
+                 skip_mode="mul", maxseqlen=T, compute_dtype="bfloat16")
+    torch.manual_seed(args.seed)
+    enc, dec = build_models(cfg)
+    weights = (enc.state_dict(), dec.state_dict())
+    fwd = make_forward(cfg, T=T)
+    counters = forward_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = [fwd(weights, x) for x in xs]
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"mul path: {len(xs)} batches of {b} at {height}x{width}, T={T}, "
+        f"bf16, {t_run:.2f} s (first call included); launches {launches}")
+    want = forward_launches("mul", T, len(xs))
+    if launches != want:
+        raise SystemExit(f"mul launch counts {launches} != expected {want}")
+    masks, clss, stops = outs[-1]
+    want_shapes = ((b, T, height, width), (b, T, 9), (b, T, 1))
+    shapes = (tuple(masks.shape), tuple(clss.shape), tuple(stops.shape))
+    if shapes != want_shapes:
+        raise SystemExit(f"mul output shapes {shapes} != {want_shapes}")
+    if not all(torch.isfinite(t.float()).all() for t in outs[-1]):
+        raise SystemExit("non-finite mul output")
+
+    # the same weights through the plain path (K8's plain version) on the
+    # card; h and c round to bf16 at every cell in both paths, so the
+    # outputs agree to a few bf16 ulps of [0, 1] (the concat check's limit)
+    enc_p, dec_p = build_models(cfg)
+    enc_p.load_state_dict(weights[0])
+    dec_p.load_state_dict(weights[1])
+    enc_p = enc_p.to("cuda", torch.bfloat16)
+    dec_p = dec_p.to("cuda")
+    x_nchw = xs[-1].permute(0, 3, 1, 2).contiguous()
+    plain = forward(cfg, enc_p, dec_p, x_nchw, T=T, plain=True)
+    err = {}
+    for nm, got, ref in zip(("masks", "class_probs", "stops"), outs[-1],
+                            plain):
+        err[nm] = max_err(got, ref)
+        check(f"mul path vs plain path, {nm}", err[nm], 8 * BF16_ULP)
+    del plain
+    fwd_ms = cuda_ms(lambda: forward(cfg, enc_p, dec_p, x_nchw, T=T),
+                     iters=3)
+    img_s = b / (fwd_ms / 1e3)
+    log(f"mul forward T={T} {fwd_ms:.3f} ms/batch = {img_s:.2f} img/s "
+        f"(B={b}, bf16; CUDA events around whole calls)")
+    profile = None
+    if args.profile:
+        profile = profile_call(
+            lambda: forward(cfg, enc_p, dec_p, x_nchw, T=T), None,
+            "mul_forward")
+    return {"launches": launches, "err": err, "forward_ms": fwd_ms,
+            "images_per_s": img_s, "profile": profile}
+
+
+def write_cityscapes(root, rng, n=2, size=(1024, 2048)):
+    """gtFine val of one city at the dataset's native size: random images,
+    instance ids of persons (24xxx), cars (26xxx), a caravan (29xxx, which
+    the catalog drops) and a person crowd region (24)."""
+    import numpy as np
+    from PIL import Image
+    h, w = size
+    img_dir = os.path.join(root, "cs", "leftImg8bit", "val", "cityA")
+    gt_dir = os.path.join(root, "cs", "gtFine", "val", "cityA")
+    os.makedirs(img_dir)
+    os.makedirs(gt_dir)
+    yy, xx = np.ogrid[:h, :w]
+    for i in range(n):
+        ids = np.zeros((h, w), np.int32)
+        for iid in (24000, 24001, 26000, 26001, 29000, 24):
+            cy, cx = rng.integers(h // 10, h - h // 10), rng.integers(
+                w // 10, w - w // 10)
+            ry, rx = rng.integers(h // 25, h // 5, 2)
+            ids[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = iid
+        name = f"cityA_{i:06d}_000019"
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+                        ).save(os.path.join(img_dir,
+                                            f"{name}_leftImg8bit.png"))
+        Image.fromarray(ids.astype(np.uint16)).save(
+            os.path.join(gt_dir, f"{name}_gtFine_instanceIds.png"))
+    return os.path.join(root, "cs")
+
+
+def write_leaves(root, rng, n=3, size=(530, 500)):
+    """CVPPP A1 plants at the dataset's image size, 4-8 leaves each."""
+    import numpy as np
+    from PIL import Image
+    h, w = size
+    d = os.path.join(root, "A1")
+    os.makedirs(d)
+    yy, xx = np.ogrid[:h, :w]
+    for i in range(n):
+        label = np.zeros((h, w), np.uint8)
+        for k in range(1, int(rng.integers(4, 9))):
+            cy, cx = rng.integers(h // 8, h - h // 8), rng.integers(
+                w // 8, w - w // 8)
+            r = rng.integers(h // 25, h // 8)
+            label[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = k
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+                        ).save(os.path.join(d, f"plant{i:03d}_rgb.png"))
+        Image.fromarray(label).save(os.path.join(d, f"plant{i:03d}_label.png"))
+    return d
+
+
+def write_pascal(root, rng, n=2, size=(375, 500)):
+    """VOC layout at a typical VOC image size: a person and a car as
+    palette PNGs with a 255 ignore border, and the val list."""
+    import numpy as np
+    from PIL import Image
+    from rsis_tpu_torch.data.tools.palettes import pascal_palette
+    h, w = size
+    d = os.path.join(root, "voc")
+    for sub in ("JPEGImages", "SegmentationClass", "SegmentationObject",
+                "ImageSets/Segmentation"):
+        os.makedirs(os.path.join(d, sub))
+    color = {v: k for k, v in pascal_palette().items()}
+    yy, xx = np.ogrid[:h, :w]
+    names = []
+    for i in range(n):
+        name = f"2007_{i:06d}"
+        names.append(name)
+        seg = np.zeros((h, w, 3), np.uint8)
+        obj = np.zeros((h, w, 3), np.uint8)
+        for k, cls in enumerate((15, 7), start=1):
+            cy, cx = rng.integers(h // 5, h - h // 5), rng.integers(
+                w // 5, w - w // 5)
+            r = rng.integers(h // 12, h // 5)
+            blob = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            seg[blob], obj[blob] = color[cls], color[k]
+        seg[:3], obj[:3] = color[255], color[255]
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+                        ).save(os.path.join(d, "JPEGImages", f"{name}.jpg"))
+        Image.fromarray(seg).save(
+            os.path.join(d, "SegmentationClass", f"{name}.png"))
+        Image.fromarray(obj).save(
+            os.path.join(d, "SegmentationObject", f"{name}.png"))
+    with open(os.path.join(d, "ImageSets/Segmentation/val.txt"), "w") as fp:
+        fp.write("\n".join(names) + "\n")
+    return d
+
+
+def eval_phase(args, out_dir) -> dict:
+    """Phase 3c: the evaluation entry points in process on the card. Under
+    build/, from --seed: a Cityscapes val tree (2 images, 1024x2048), a
+    CVPPP A1 tree (3 plants) and a Pascal tree (2 images, precomputed by
+    the port's pascal_precompute); two full-width checkpoints written by
+    the port's train/checkpoint.py (random weights, bf16): "cs" (concat,
+    9 classes) and "voc" (mul, 21 classes). Then cli.eval_cityscapes (cs,
+    -imsize 512: input 512x1024, T=20, built-in AP), cli.eval_leaves (cs),
+    cli.eval (voc, COCO stats) and cli.predict (voc, two images): every
+    output file, finite scores and the kernels' launches per forward are
+    checked; the wall time per image and the forward's share of it are
+    printed (with --profile, the device's idle share of the Cityscapes
+    run)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.cli import eval as cli_eval
+    from rsis_tpu_torch.cli import eval_cityscapes, eval_leaves, predict
+    from rsis_tpu_torch.data.tools.pascal_precompute import run as precompute
+    from rsis_tpu_torch.models.rsis import build_models
+    from rsis_tpu_torch.train.checkpoint import save_checkpoint
+    from rsis_tpu_torch.train.step import create_train_state
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_",
+                            dir=os.path.join(here, "build"))
+    rng = np.random.default_rng(args.seed)
+    models = os.path.join(root, "models")
+    try:
+        t0 = time.perf_counter()
+        cs_dir = write_cityscapes(root, rng)
+        leaves_dir = write_leaves(root, rng)
+        voc_dir = write_pascal(root, rng)
+        precompute(voc_dir, "val")
+        for name, skip, n_cls in (("cs", "concat", 9), ("voc", "mul", 21)):
+            cfg = Config(base_model="resnet101", hidden_size=128,
+                         num_classes=n_cls, skip_mode=skip,
+                         compute_dtype="bfloat16", models_root=models,
+                         model_name=name)
+            torch.manual_seed(args.seed)
+            enc, dec = build_models(cfg)
+            state = create_train_state(cfg, (enc.state_dict(),
+                                             dec.state_dict()))
+            save_checkpoint(cfg, state)
+            del state, enc, dec
+        log(f"eval phase set-up (trees, precompute, two checkpoints): "
+            f"{time.perf_counter() - t0:.2f} s")
+        common = ["-models_root", models, "--log_term", "-seed",
+                  str(args.seed)]
+        pred_dir = os.path.join(root, "predictions")
+        runs = [
+            ("eval_cityscapes", eval_cityscapes.main, "concat", 20, 2,
+             ["-model_name", "cs", "-dataset", "cityscapes",
+              "-cityscapes_dir", cs_dir, "-eval_split", "val", "-imsize",
+              "512", "-maxseqlen", "20", "-batch_size", "2"]),
+            ("eval_leaves", eval_leaves.main, "concat", 20, 3,
+             ["-model_name", "cs", "-dataset", "leaves", "-leaves_dir",
+              leaves_dir, "-eval_split", "train", "-imsize", "512",
+              "--resize", "-maxseqlen", "20", "-batch_size", "3"]),
+            ("eval", cli_eval.main, "mul", 10, 2,
+             ["-model_name", "voc", "-dataset", "pascal", "-pascal_dir",
+              voc_dir, "-eval_split", "val", "-imsize", "256",
+              "-maxseqlen", "10", "-batch_size", "2"]),
+            ("predict", predict.main, "mul", 10, 2,
+             ["-model_name", "voc", "-predict_input",
+              os.path.join(voc_dir, "JPEGImages"), "-predict_output",
+              pred_dir, "-imsize", "256", "--resize", "-maxseqlen", "10",
+              "-batch_size", "2", "-stop_th", "0"]),
+        ]
+        counters = forward_counters()
+        results = {}
+        for name, main_fn, skip, T, n_img, argv in runs:
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = main_fn(common + argv)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            want = forward_launches(skip, T, 1)
+            if res["images"] != n_img or launches != want:
+                raise SystemExit(f"cli.{name}: {res['images']} images, "
+                                 f"launches {launches} (want {n_img} "
+                                 f"images in one forward: {want})")
+            results[name] = {"wall_s": wall, "images": n_img,
+                             "forward_s": res["forward_s"],
+                             "s_per_image": wall / n_img,
+                             "forward_share": res["forward_s"] / wall,
+                             "launches": launches}
+            log(f"cli.{name} ({skip}, T={T}): {wall:.2f} s for {n_img} "
+                f"images = {wall / n_img:.3f} s per image, the forward "
+                f"{res['forward_s']:.3f} s ({res['forward_s'] / wall:.3f} "
+                f"of the wall time); launches {launches}")
+            results[name]["result"] = res
+
+        cs = results["eval_cityscapes"]["result"]
+        for txt in cs["written"]:
+            with open(txt) as fp:
+                lines = fp.read().split("\n")[:-1]
+            if len(lines) != 20 * 8 or not all(os.path.exists(
+                    os.path.join(os.path.dirname(txt), ln.split()[0]))
+                    for ln in lines):
+                raise SystemExit(f"cli.eval_cityscapes: {txt} lists "
+                                 f"{len(lines)} masks, or one is missing")
+        ap = cs["ap"]
+        leaves = results["eval_leaves"]["result"]
+        scores = leaves["scores"]
+        stats = results["eval"]["result"]["stats"]
+        pred = results["predict"]["result"]["written"]
+        files = (cs["written"] + leaves["written"] + pred["png"]
+                 + [pred["json"]])
+        if (len(cs["written"]) != 2 or len(leaves["written"]) != 3
+                or len(pred["png"]) != 2
+                or not all(os.path.exists(f) for f in files)):
+            raise SystemExit(f"missing evaluation outputs: {files}")
+        if ap is None or scores is None or stats is None or len(stats) != 12 \
+                or not np.isfinite([ap["allAp"], ap["allAp50%"], scores["SBD"],
+                                    scores["absDiC"]] + list(stats)).all():
+            raise SystemExit(f"non-finite evaluation results: AP {ap}, "
+                             f"CVPPP {scores}, COCO stats {stats}")
+        log(f"eval results (random weights): Cityscapes allAp "
+            f"{ap['allAp']:.4f}, allAp50% {ap['allAp50%']:.4f}; CVPPP SBD "
+            f"{scores['SBD']:.4f}, |DiC| {scores['absDiC']:.4f}; Pascal "
+            f"COCO AP {stats[0]:.4f}; predict "
+            f"{results['predict']['result']['instances']} instances")
+        profile = None
+        if args.profile:
+            # no trace file: seconds of host work make it too large
+            profile = profile_call(
+                lambda: eval_cityscapes.main(common + runs[0][-1]), None,
+                "eval_cityscapes")
+        for r in results.values():
+            r.pop("result")
+        results["scores"] = {"cityscapes_ap": ap, "cvppp": scores,
+                             "coco_stats": stats}
+        results["profile"] = profile
+        return results
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -903,6 +1310,7 @@ def main() -> int:
                                                    fused_cell_rowmajor_ref)
         from rsis_tpu_torch.ops.mask_head import (mask_head_fused_kernel,
                                                   mask_head_ref)
+        from rsis_tpu_torch.kernels import _binding as rle_binding
     except ImportError as e:
         print(f"chip_smoke: the rsis_tpu_torch package is missing: {e}",
               file=sys.stderr)
@@ -920,6 +1328,9 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"build: RLE library {rle_binding.build().name} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, info in sorted(built.items()):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -934,6 +1345,8 @@ def main() -> int:
         hh, ww = height // 2 ** (5 - i), width // 2 ** (5 - i)
         cell_geoms.append((hh, ww, ch, widths[i - 1] if i else 0))
     head_shape = (b, cell_geoms[-1][0], widths[-1], cell_geoms[-1][1])
+    # (H, W, Cx, C) of the mul decode's five cells (K8)
+    k8_geoms = mul_geoms(height, width, widths)
     # the five cells of the train step's decode (input TRAIN_HW)
     train_geoms = [(TRAIN_HW[0] // 2 ** (5 - i), TRAIN_HW[1] // 2 ** (5 - i),
                     ch, widths[i - 1] if i else 0)
@@ -979,6 +1392,7 @@ def main() -> int:
         check(f"K2 head {head_shape} {tag}", err, tol)
         if dtype == torch.bfloat16:
             k2_err = err
+    k8_err = check_clstm(k8_geoms, b, gen)
     log(f"backward kernel checks at the train step's shapes, B={tb}:")
     bwd_err = check_backward_kernels(train_geoms, tb, gen)
     lap_err = check_lap(gen)
@@ -996,19 +1410,18 @@ def main() -> int:
     fwd = make_forward(cfg, T=args.steps)
     xs = [torch.randn(b, height, width, 3, generator=gen, device="cuda")
           for _ in range(args.batches)]
-    fused_cell_rowmajor.launches = 0
-    mask_head_fused_kernel.launches = 0
+    counters = forward_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     outs = [fwd(weights, x) for x in xs]
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
-    launches = {"fused_cell_rowmajor": fused_cell_rowmajor.launches,
-                "mask_head_fused_kernel": mask_head_fused_kernel.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     log(f"main path: {args.batches} batches of {b} at {height}x{width}, "
         f"T={args.steps}, bf16, {t_main:.2f} s (first call included); "
         f"launches {launches}")
-    want = {"fused_cell_rowmajor": 5 * args.steps * args.batches,
-            "mask_head_fused_kernel": args.steps * args.batches}
+    want = forward_launches("concat", args.steps, args.batches)
     if launches != want:
         raise SystemExit(f"launch counts {launches} != expected {want}")
 
@@ -1059,6 +1472,11 @@ def main() -> int:
         check(f"main path fp32 T=2 vs plain path, {nm}", max_err(got, ref),
               1e-3)
     del enc32, dec32, got32, ref32
+
+    # ---- 3b, 3c. the mul forward and the evaluation entry points --------
+    mul = mul_forward_phase(args, xs)
+    del xs
+    evals = eval_phase(args, out_dir)
 
     # ---- 4. the training path ------------------------------------------
     train = train_phase(args, out_dir)
@@ -1118,6 +1536,7 @@ def main() -> int:
     k2_bms, k2_by = bound_ms(k2_bytes, k2_ops, dtype)
     log(f"  K2 head {head_shape}: {k2_ms:.4f} ms (plain {k2_pms:.4f}, "
         f"bound {k2_bms:.4f} by {k2_by})")
+    k8 = time_clstm(k8_geoms, b, gen)
     bwd = time_backward_kernels(train_geoms, tb, gen)
     lap = time_lap(tb, args.train_steps, 20, gen)
     warp = time_warp(tb, gen)
@@ -1166,6 +1585,13 @@ def main() -> int:
          "ms": warp["ms"], "plain_ms": warp["plain_ms"],
          "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
          "library_ms": warp["library_ms"]},
+        {"name": "clstm_step", "route": "cuda",
+         "source": "rsis_tpu_torch/csrc/clstm_step.cu",
+         "replaces": "rsis_tpu/ops/pallas_clstm.py:154",
+         "launches": mul["launches"]["clstm_step"], "max_abs_err": k8_err,
+         "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+         "library_ms": None},
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -1182,13 +1608,14 @@ def main() -> int:
                        "trainer": trainer, "warp": warp,
                        "backward_cells": {k: v["cells"]
                                           for k, v in bwd.items()},
-                       "lap": lap, "kernels": kernels}, f, indent=1)
+                       "lap": lap, "mul": mul, "k8_cells": k8["cells"],
+                       "evals": evals, "kernels": kernels}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are "
-        f"device times (CUDA-graph replay): K1 ms is one decode step's five "
-        f"launches at B={b}, K2 ms one launch; K3, K4 and K5 ms one decode "
-        f"step's five launches at B={tb}, K6 and K7 ms one launch; launches "
-        f"of K1 and K2 are from the inference path, of K3-K7 from the train "
-        f"path")
+        f"device times (CUDA-graph replay): K1 and K8 ms are one decode "
+        f"step's five launches at B={b}, K2 ms one launch; K3, K4 and K5 ms "
+        f"one decode step's five launches at B={tb}, K6 and K7 ms one "
+        f"launch; launches of K1 and K2 are from the inference path, of K8 "
+        f"from the mul path, of K3-K7 from the train path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

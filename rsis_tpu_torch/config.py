@@ -4,9 +4,10 @@ Counterpart of ``rsis_tpu/config.py`` (``Config``, ``get_parser``,
 ``config_from_args``): a copy of the fields the inference forward, the
 training step and the train loop read, with the same names, defaults and
 command-line flags, so a JAX ``Config`` and this one describe the same
-model and the same run. Kernel dispatch goes by tensor device, so there is
-no ``pallas`` knob; the JAX package's mesh, multi-host, checkpoint-format,
-evaluation and prediction knobs are not here and their flags are refused.
+model and the same run, training, evaluation and prediction alike.
+Kernel dispatch goes by tensor device, so there is no ``pallas`` knob; the
+JAX package's mesh, multi-host and checkpoint-format knobs are not here and
+their flags are refused.
 Like the reference, the config is saved beside the checkpoints
 (``args.json``) and takes precedence on resume.
 """
@@ -108,10 +109,34 @@ class Config:
     resize: bool = False
     num_classes: int = 21
     dataset: str = "pascal"
+    pascal_dir: str = "/data/VOCAug/"
+    cityscapes_dir: str = "/data/CityScapes/"
+    leaves_dir: str = "/data/LeavesDataset/A1/"
+    leaves_test_dir: str = "/data/CVPPP2014_LSC_testing_data/A1/"
     num_workers: int = 4
     synthetic_length: int = 16
     synthetic_max_instances: int = 4
     models_root: str = "../models"
+
+    # testing / evaluation (cli/eval*.py)
+    eval_split: str = "test"
+    mask_th: float = 0.5
+    stop_th: float = 0.5
+    class_th: float = 0.5
+    max_dets: int = 100
+    min_size: float = 0.001
+    cat_id: int = -1
+    use_cats: bool = True
+    display: bool = False
+    no_display_text: bool = False
+    all_classes: bool = False
+    no_run_coco_eval: bool = False
+    display_route: bool = False
+
+    # the prediction CLI (cli/predict.py): any images in, instances out
+    predict_input: str = ""      # image file, directory, or glob
+    predict_output: str = ""     # output dir (default <model>/predictions)
+    predict_format: str = "both"  # png | coco | both
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -221,10 +246,32 @@ def get_parser() -> argparse.ArgumentParser:
     flag("-num_classes", "num_classes", type=int)
     flag("-dataset", "dataset",
          choices=["pascal", "cityscapes", "leaves", "synthetic"])
+    flag("-pascal_dir", "pascal_dir")
+    flag("-cityscapes_dir", "cityscapes_dir")
+    flag("-leaves_dir", "leaves_dir")
+    flag("-leaves_test_dir", "leaves_test_dir")
     flag("-num_workers", "num_workers", type=int)
     flag("-synthetic_length", "synthetic_length", type=int)
     flag("-synthetic_max_instances", "synthetic_max_instances", type=int)
     flag("-models_root", "models_root")
+    # testing
+    flag("-eval_split", "eval_split")
+    flag("-mask_th", "mask_th", type=float)
+    flag("-stop_th", "stop_th", type=float)
+    flag("-class_th", "class_th", type=float)
+    flag("-max_dets", "max_dets", type=int)
+    flag("-min_size", "min_size", type=float)
+    flag("-cat_id", "cat_id", type=int)
+    switch("--ignore_cats", "use_cats", store=False)
+    switch("--display", "display")
+    switch("--no_display_text", "no_display_text")
+    switch("--all_classes", "all_classes")
+    switch("--no_run_coco_eval", "no_run_coco_eval")
+    switch("--display_route", "display_route")
+    flag("-predict_input", "predict_input")
+    flag("-predict_output", "predict_output")
+    flag("-predict_format", "predict_format",
+         choices=["png", "coco", "both"])
     return p
 
 

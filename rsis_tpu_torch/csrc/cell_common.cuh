@@ -1,8 +1,8 @@
 // Shared machinery of the ConvLSTM cell kernels (fused_cell.cu, the
-// forward, and cell_bwd.cu, the backward) and of the plain 3x3 conv
-// (conv3x3.cu): the halo staging, the mma.sync helpers and the gate
-// convolution's two main loops, each with the epilogue as a template
-// argument.
+// forward, cell_bwd.cu, the backward, and clstm_step.cu, the NCHW step)
+// and of the plain 3x3 conv (conv3x3.cu): the halo staging, the mma.sync
+// helpers and the gate convolution's two main loops, each with the
+// epilogue and the operands' layout as template arguments.
 //
 // The gate convolution, for tensors stored (B, H, C, W):
 //   gates = conv3x3_same([x_pad (Cx) || h_prev (C)], W)          (4C, fp32)
@@ -25,6 +25,14 @@
 //     owning G channels x 4 gates x P pixels.
 // Both keep the products exact in fp32 for bf16 inputs, as the plain
 // versions do.
+//
+// Two operand layouts (the Layout template argument): RowMajorLayout is
+// the one above (the decode's kernels); NchwLayout reads an unpadded NCHW
+// x (B, Cx, H, W) and h_prev (B, C, H, W) with a zero SAME halo and the
+// gate weight as OHWI (4C, 3, 3, Cx+C) (column tap * (Cx+C) + ch of a
+// weight row), for the ConvLSTM step of clstm_step.cu. Both give the main
+// loops the same concat-channel order (x channels, then h) and the same
+// products in the same order.
 
 #pragma once
 
@@ -58,14 +66,71 @@ constexpr int kThreads = 256;
 constexpr int kInFlight = 8;  // halo loads a thread keeps in flight
 constexpr size_t kMaxSmem = 227 * 1024;
 
+// The decode's (B, H, C, W) tensors: x_pad (B, H+2, Cx, W+2) with its zero
+// ring, h_prev unpadded, the packed weight of pack_cell_weights.
+struct RowMajorLayout {
+  static constexpr bool kPackedWeight = true;
+  // halo value at padded row py, padded column px, concat channel ch
+  template <typename T>
+  static __device__ __forceinline__ T halo(const T* __restrict__ h_prev,
+                                           const T* __restrict__ x_pad,
+                                           int b, int py, int ch, int px,
+                                           int H, int W, int C, int Cx) {
+    T val = from_f<T>(0.0f);
+    if (ch < Cx) {
+      if (px < W + 2 && py < H + 2)
+        val = x_pad[((size_t)(b * (H + 2) + py) * Cx + ch) * (W + 2) + px];
+    } else {
+      const int iy = py - 1;
+      const int ix = px - 1;
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W)
+        val = h_prev[((size_t)(b * H + iy) * C + (ch - Cx)) * W + ix];
+    }
+    return val;
+  }
+  // column of a weight row for (tap, concat channel ch)
+  static __device__ __forceinline__ int wcol(int tap, int ch, int C,
+                                             int Cx) {
+    return ch < Cx ? tap * Cx + ch : 9 * Cx + tap * C + (ch - Cx);
+  }
+};
+
+// NCHW x (B, Cx, H, W) and h_prev (B, C, H, W), both unpadded with a zero
+// SAME halo, and the OHWI weight (4C, 3, 3, Cx+C).
+struct NchwLayout {
+  static constexpr bool kPackedWeight = false;
+  template <typename T>
+  static __device__ __forceinline__ T halo(const T* __restrict__ h_prev,
+                                           const T* __restrict__ x,
+                                           int b, int py, int ch, int px,
+                                           int H, int W, int C, int Cx) {
+    T val = from_f<T>(0.0f);
+    const int iy = py - 1;
+    const int ix = px - 1;
+    if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
+      if (ch < Cx)
+        val = x[((size_t)(b * Cx + ch) * H + iy) * W + ix];
+      else
+        val = h_prev[((size_t)(b * C + (ch - Cx)) * H + iy) * W + ix];
+    }
+    return val;
+  }
+  static __device__ __forceinline__ int wcol(int tap, int ch, int C,
+                                             int Cx) {
+    return tap * (Cx + C) + ch;
+  }
+};
+
 // Stage the halo of output rows y .. y + rows - 3: for dy < rows, channel
 // ch < Cx + C and tile column col < twp, calls store(dy, ch, col, v) with
+// v = Layout::halo at padded row y + dy and padded column x0 + col; for
+// RowMajorLayout that is
 //   ch <  Cx: x_pad[b, y + dy, ch, x0 + col]   (0 past row H + 1, col W + 1)
 //   ch >= Cx: h_prev[b, y + dy - 1, ch - Cx, x0 + col - 1]  (0 outside)
 // Consecutive threads read consecutive columns; each thread steps its
 // (dy, ch, col) counters without division and keeps kInFlight loads in
 // flight before storing.
-template <typename T, typename Store>
+template <typename Layout = RowMajorLayout, typename T, typename Store>
 __device__ __forceinline__ void stage_halo(const T* __restrict__ h_prev,
                                            const T* __restrict__ x_pad,
                                            int b, int y, int x0, int H, int W,
@@ -90,19 +155,9 @@ __device__ __forceinline__ void stage_halo(const T* __restrict__ h_prev,
       chs[u] = ch;
       dys[u] = dy;
       T val = from_f<T>(0.0f);
-      if (dy < rows) {
-        if (ch < Cx) {
-          const int px = x0 + col;
-          if (px < W + 2 && y + dy < H + 2)
-            val = x_pad[((size_t)(b * (H + 2) + y + dy) * Cx + ch) * (W + 2) +
-                        px];
-        } else {
-          const int iy = y + dy - 1;
-          const int ix = x0 + col - 1;
-          if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-            val = h_prev[((size_t)(b * H + iy) * C + (ch - Cx)) * W + ix];
-        }
-      }
+      if (dy < rows)
+        val = Layout::template halo<T>(h_prev, x_pad, b, y + dy, ch, x0 + col,
+                                       H, W, C, Cx);
       v[u] = val;
       col += dcol;
       ch += dch;
@@ -126,7 +181,7 @@ __device__ __forceinline__ void stage_halo(const T* __restrict__ h_prev,
 // One block: image b, output row y, columns [x0, x0 + tw). Threads are
 // (C / G) channel groups x (tw / P) pixel groups; thread t owns channels
 // cg*G .. cg*G+G-1 and pixels pg + j * (tw / P), j < P.
-template <typename T, int G, int P, typename Epi>
+template <typename T, int G, int P, typename Layout, typename Epi>
 __global__ void __launch_bounds__(kThreads)
 cell_fma_kernel(const T* __restrict__ h_prev, const T* __restrict__ x_pad,
                 const T* __restrict__ wt, int H, int W, int C, int Cx, int tw,
@@ -143,10 +198,10 @@ cell_fma_kernel(const T* __restrict__ h_prev, const T* __restrict__ x_pad,
 
   // tile column j is x_pad column x0 + j (padded coordinates) and h
   // column x0 + j - 1
-  stage_halo(h_prev, x_pad, b, y, x0, H, W, C, Cx, twp, 3,
-             [&](int dy, int ch, int col, T v) {
-               tile[(dy * cn + ch) * twp + col] = to_f(v);
-             });
+  stage_halo<Layout>(h_prev, x_pad, b, y, x0, H, W, C, Cx, twp, 3,
+                     [&](int dy, int ch, int col, T v) {
+                       tile[(dy * cn + ch) * twp + col] = to_f(v);
+                     });
   __syncthreads();
 
   const int pg = threadIdx.x % pgs;
@@ -167,8 +222,8 @@ cell_fma_kernel(const T* __restrict__ h_prev, const T* __restrict__ x_pad,
     const int dx = tap % 3;
     const float* trow = tile + (size_t)(dy * cn) * twp + dx + pg;
     for (int ch = 0; ch < cn; ++ch) {
-      // packed column: x taps first, then h taps
-      const int k = ch < Cx ? tap * Cx + ch : 9 * Cx + tap * C + (ch - Cx);
+      // packed column: x taps first, then h taps (RowMajorLayout)
+      const int k = Layout::wcol(tap, ch, C, Cx);
       const float* src = trow + (size_t)ch * twp;
       float in[P];
 #pragma unroll
@@ -250,9 +305,12 @@ __host__ __device__ inline int mma_stride(int cn) {
 
 // Table of k8 groups (packed columns 8g .. 8g+7) -> halo offset of pixel 0
 // for a halo of x channels (xg groups of 8) then h channels (hg groups).
+// With wofs, also the group's first weight column in an OHWI weight row:
+// tap * (Cx + C) + chs.
 __device__ __forceinline__ void fill_group_offsets(int* goff, int xg, int hg,
                                                    int Cx, int twp,
-                                                   int stride) {
+                                                   int stride,
+                                                   int* wofs = nullptr) {
   const int n_groups = 9 * (xg + hg);
   for (int g = threadIdx.x; g < n_groups; g += blockDim.x) {
     int tap, chs;
@@ -264,13 +322,16 @@ __device__ __forceinline__ void fill_group_offsets(int* goff, int xg, int hg,
       chs = Cx + ((g - 9 * xg) % hg) * 8;
     }
     goff[g] = ((tap / 3) * twp + tap % 3) * stride + chs;
+    if (wofs) wofs[g] = tap * (8 * (xg + hg)) + chs;
   }
 }
 
 // One block: image b, output rows y0 .. y0 + R - 1, columns [x0, x0 + tw),
 // tw = 16 * wm; the R + 2 halo rows are staged once for the R rows.
 // Warp w: m-tile w % wm, channel blocks (w / wm) * J .. + J - 1.
-template <int J, typename Epi>
+// NchwLayout's weight groups are found by the wofs table (OHWI columns)
+// instead of 8 * g (packed columns); a B pair is one 32-bit load in both.
+template <int J, typename Layout, typename Epi>
 __global__ void __launch_bounds__(kThreads)
 cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
                 const __nv_bfloat16* __restrict__ x_pad,
@@ -292,11 +353,15 @@ cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
   const int hg = C / 8;             // h groups per tap
   const int n_groups = 9 * (xg + hg);
   int* goff = reinterpret_cast<int*>(halo + (R + 2) * twp * stride);
-  fill_group_offsets(goff, xg, hg, Cx, twp, stride);
-  stage_halo(h_prev, x_pad, b, y0, x0, H, W, C, Cx, twp, R + 2,
-             [&](int dy, int ch, int col, __nv_bfloat16 v) {
-               halo[(dy * twp + col) * stride + ch] = v;
-             });
+  int* wofs = goff + n_groups;  // NchwLayout only
+  if constexpr (Layout::kPackedWeight)
+    fill_group_offsets(goff, xg, hg, Cx, twp, stride);
+  else
+    fill_group_offsets(goff, xg, hg, Cx, twp, stride, wofs);
+  stage_halo<Layout>(h_prev, x_pad, b, y0, x0, H, W, C, Cx, twp, R + 2,
+                     [&](int dy, int ch, int col, __nv_bfloat16 v) {
+                       halo[(dy * twp + col) * stride + ch] = v;
+                     });
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
@@ -309,7 +374,7 @@ cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
   const int half = lane >> 4;
 
   // weight pair pointers: row n = q*C + (jb0+j)*8 + lane/4, column
-  // 8*g + 2*(lane%4)
+  // 8*g + 2*(lane%4) (packed) or wofs[g] + 2*(lane%4) (OHWI)
   const __nv_bfloat16* wrow =
       wt + (size_t)(jb0 * 8 + (lane >> 2)) * K + 2 * (lane & 3);
 
@@ -322,10 +387,17 @@ cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const __nv_bfloat16* wp = wrow + (size_t)(q * C + j * 8) * K;
-        dst[j][q][0] = *reinterpret_cast<const unsigned*>(wp + 8 * g0);
-        dst[j][q][1] =
-            has_g1 ? *reinterpret_cast<const unsigned*>(wp + 8 * (g0 + 1))
-                   : 0u;
+        if constexpr (Layout::kPackedWeight) {
+          dst[j][q][0] = *reinterpret_cast<const unsigned*>(wp + 8 * g0);
+          dst[j][q][1] =
+              has_g1 ? *reinterpret_cast<const unsigned*>(wp + 8 * (g0 + 1))
+                     : 0u;
+        } else {
+          dst[j][q][0] = *reinterpret_cast<const unsigned*>(wp + wofs[g0]);
+          dst[j][q][1] =
+              has_g1 ? *reinterpret_cast<const unsigned*>(wp + wofs[g0 + 1])
+                     : 0u;
+        }
       }
   };
   for (int rr = 0; rr < R && y0 + rr < H; ++rr) {
@@ -382,7 +454,7 @@ cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
 // Launches the tensor-core kernel when the shapes allow it; returns
 // cudaErrorNotSupported when they do not (the caller then takes the FMA
 // kernel).
-template <int J, typename Epi>
+template <int J, typename Layout, typename Epi>
 cudaError_t launch_cell_mma(const void* h_prev, const void* x_pad,
                             const void* wt, int B, int H, int W, int C,
                             int Cx, cudaStream_t stream, Epi epi) {
@@ -400,12 +472,13 @@ cudaError_t launch_cell_mma(const void* h_prev, const void* x_pad,
   while (true) {
     smem = (size_t)(R + 2) * (tw + 2) * mma_stride(Cx + C) *
                sizeof(__nv_bfloat16) +
-           (size_t)9 * (Cx + C) / 8 * sizeof(int);
+           (size_t)9 * (Cx + C) / 8 * sizeof(int) *
+               (Layout::kPackedWeight ? 1 : 2);
     if (smem <= kMaxSmem || R == 1) break;
     R /= 2;
   }
   if (smem > kMaxSmem) return cudaErrorNotSupported;
-  auto kern = cell_mma_kernel<J, Epi>;
+  auto kern = cell_mma_kernel<J, Layout, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -418,7 +491,7 @@ cudaError_t launch_cell_mma(const void* h_prev, const void* x_pad,
   return cudaGetLastError();
 }
 
-template <typename T, int G, int P, typename Epi>
+template <typename T, int G, int P, typename Layout, typename Epi>
 cudaError_t launch_cell_fma(const void* h_prev, const void* x_pad,
                             const void* wt, int B, int H, int W, int C,
                             int Cx, cudaStream_t stream, Epi epi) {
@@ -438,7 +511,7 @@ cudaError_t launch_cell_fma(const void* h_prev, const void* x_pad,
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int tw = pgs * P;
   const int n_tiles = (W + tw - 1) / tw;
-  auto kern = cell_fma_kernel<T, G, P, Epi>;
+  auto kern = cell_fma_kernel<T, G, P, Layout, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -451,8 +524,9 @@ cudaError_t launch_cell_fma(const void* h_prev, const void* x_pad,
 }
 
 // The gate convolution with epilogue epi: the tensor cores for bf16 with
-// C and Cx multiples of 8, the FMA loop otherwise.
-template <typename T, typename Epi>
+// C and Cx multiples of 8, the FMA loop otherwise. x_pad is the x operand
+// of the layout (padded for RowMajorLayout, unpadded for NchwLayout).
+template <typename T, typename Layout = RowMajorLayout, typename Epi>
 cudaError_t launch_cell(const void* h_prev, const void* x_pad, const void* wt,
                         int B, int H, int W, int C, int Cx,
                         cudaStream_t stream, Epi epi) {
@@ -462,17 +536,17 @@ cudaError_t launch_cell(const void* h_prev, const void* x_pad, const void* wt,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (C % 8 == 0 && Cx % 8 == 0)
       err = (C / 8) % 2 == 0
-                ? launch_cell_mma<2>(h_prev, x_pad, wt, B, H, W, C, Cx,
-                                     stream, epi)
-                : launch_cell_mma<1>(h_prev, x_pad, wt, B, H, W, C, Cx,
-                                     stream, epi);
+                ? launch_cell_mma<2, Layout>(h_prev, x_pad, wt, B, H, W, C,
+                                             Cx, stream, epi)
+                : launch_cell_mma<1, Layout>(h_prev, x_pad, wt, B, H, W, C,
+                                             Cx, stream, epi);
   }
   if (err != cudaErrorNotSupported) return err;
   if (C % 2 == 0)
-    return launch_cell_fma<T, 2, 4>(h_prev, x_pad, wt, B, H, W, C, Cx,
-                                    stream, epi);
-  return launch_cell_fma<T, 1, 8>(h_prev, x_pad, wt, B, H, W, C, Cx, stream,
-                                  epi);
+    return launch_cell_fma<T, 2, 4, Layout>(h_prev, x_pad, wt, B, H, W, C,
+                                            Cx, stream, epi);
+  return launch_cell_fma<T, 1, 8, Layout>(h_prev, x_pad, wt, B, H, W, C, Cx,
+                                          stream, epi);
 }
 
 }  // namespace rsis

@@ -13,9 +13,12 @@ truncated or padded to gt_maxseqlen; the first padding slot keeps class
 weight 1 so the model learns the <eos> class.
 
 Pillow is imported only where an image must be resized: a sample already
-at its size (the synthetic dataset) needs no Pillow. The host-side
-augmentation and cropping (flip, crop, affine on the host) are not in the
-port yet; the train step augments on the device.
+at its size (the synthetic dataset) needs no Pillow. With ``crop`` set, a
+sample is cropped to imsize x imsize after the resize, from the dataset's
+numpy generator seeded as the JAX package seeds it (Pascal and CVPPP set
+it for batches above 1, in evaluation too). The host-side flip and affine
+(``--host_augment``) are not in the port yet; the train step augments on
+the device.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from .augment import random_crop
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -109,15 +114,20 @@ class InstanceDataset:
     classes: Sequence[str] = ()
 
     def __init__(self, cfg, split: str = "train", imsize: int = 256,
-                 resize: bool = False):
+                 resize: bool = False, crop: bool = False, seed: int = 0):
         self.cfg = cfg
         self.split = split
         self.imsize = imsize
         self.resize = resize
+        self.crop = crop
         self.max_seq_len = cfg.gt_maxseqlen
+        self.rng = np.random.default_rng(seed)
 
     def get_raw_sample(self, index: int):
         raise NotImplementedError
+
+    def get_sample_list(self):
+        return self.image_files  # type: ignore[attr-defined]
 
     def get_classes(self):
         return list(self.classes)
@@ -133,6 +143,11 @@ class InstanceDataset:
         h, w = img.shape[:2]
         ins = resize_masks_nearest(np.asarray(ins), h, w)
         seg = resize_masks_nearest(np.asarray(seg), h, w)
+        if self.crop:
+            img_chw, ins, seg = random_crop(
+                [np.moveaxis(img, -1, 0), ins, seg],
+                (self.imsize, self.imsize), self.rng)
+            img = np.ascontiguousarray(np.moveaxis(img_chw, 0, -1))
         if int(np.max(seg, initial=0)) > 255 or int(np.min(seg,
                                                           initial=0)) < 0:
             raise ValueError("a class id does not fit the uint8 wire")

@@ -1,19 +1,144 @@
-"""Dataset catalogs: the synthetic blobs, and the factory.
+"""Dataset catalogs: Pascal VOC (+SBD), Cityscapes, CVPPP leaves, the
+synthetic blobs, and the factory.
 
-Counterpart of ``rsis_tpu/data/catalogs.py`` (``SyntheticBlobs``,
-``get_dataset``). ``SyntheticBlobs`` makes the same procedural instance
-maps from the same seeds, so its uint8 wire samples are byte-identical to
-the JAX package's ``SyntheticBlobs(..., wire_dtype="uint8")``; the image
-stays a numpy array (the JAX version wraps it in a PIL image). The
-file-backed catalogs (Pascal VOC, Cityscapes, CVPPP leaves) are not in the
-port yet: ``get_dataset`` raises for them.
+Counterpart of ``rsis_tpu/data/catalogs.py`` (``PascalVOC``,
+``CityScapes``, ``LeavesDataset``, ``SyntheticBlobs``, the class tables,
+``CITYSCAPES_LABEL_IDS``, ``get_dataset``): the same file discovery, class
+tables, id remapping, crops and seeds, so each dataset gives the JAX
+package's raw samples and network inputs. Raw images are uint8 (H, W, 3)
+numpy arrays (the JAX package keeps PIL images); Pillow is imported only
+to read image files. ``SyntheticBlobs`` makes the same procedural
+instance maps from the same seeds, so its uint8 wire samples are
+byte-identical to the JAX package's ``SyntheticBlobs(...,
+wire_dtype="uint8")``.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+
 import numpy as np
 
 from .base import InstanceDataset
+
+PASCAL_CLASSES = ["<eos>", "airplane", "bicycle", "bird", "boat",
+                  "bottle", "bus", "car", "cat", "chair",
+                  "cow", "dining table", "dog", "horse",
+                  "motorcycle", "person", "potted plant",
+                  "sheep", "sofa", "train", "tv"]
+
+CITYSCAPES_CLASSES = ["<eos>", "person", "rider", "car", "truck", "bus",
+                      "train", "motorcycle", "bicycle"]
+
+LEAVES_CLASSES = ["<eos>", "leaf"]
+
+# official cityscapes label ids of the 8 trained instance classes
+CITYSCAPES_LABEL_IDS = [24, 25, 26, 27, 28, 31, 32, 33]
+
+
+def _read_rgb(path: str) -> np.ndarray:
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+
+
+def _read_array(path: str) -> np.ndarray:
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.array(im, dtype=np.int64)
+
+
+class PascalVOC(InstanceDataset):
+    """Pascal VOC 2012 (+SBD) with precomputed (H, W, 2) seg/ins .npy masks
+    (``data/tools/pascal_precompute.py``); crops when batches hold more
+    than one image."""
+
+    classes = PASCAL_CLASSES
+
+    def __init__(self, cfg, split="train", imsize=256, resize=False, seed=0):
+        super().__init__(cfg, split=split, imsize=imsize, resize=resize,
+                         crop=cfg.batch_size > 1, seed=seed)
+        self.image_dir = os.path.join(cfg.pascal_dir, "JPEGImages")
+        self.masks_dir = os.path.join(cfg.pascal_dir, "ProcMasks")
+        split_f = os.path.join(cfg.pascal_dir, "ImageSets", "Segmentation",
+                               split + ".txt")
+        with open(split_f) as fp:
+            self.image_files = [ln.strip() for ln in fp if ln.strip()]
+
+    def get_raw_sample(self, index):
+        name = self.image_files[index]
+        img = _read_rgb(os.path.join(self.image_dir, name + ".jpg"))
+        mask = np.load(os.path.join(self.masks_dir, name + ".npy"))
+        return img, mask[:, :, 1], mask[:, :, 0]
+
+
+class CityScapes(InstanceDataset):
+    """Cityscapes gtFine instance segmentation, 8 classes + <eos>: label
+    ids 24-28, 31-33 map to 1..8, caravan (29) and trailer (30) are
+    dropped, instance ids renumber densely."""
+
+    classes = CITYSCAPES_CLASSES
+
+    def __init__(self, cfg, split="train", imsize=256, resize=False, seed=0):
+        super().__init__(cfg, split=split, imsize=imsize, resize=resize,
+                         crop=cfg.crop, seed=seed)
+        self.image_files = sorted(glob.glob(os.path.join(
+            cfg.cityscapes_dir, "leftImg8bit", split, "*", "*.png")))
+        self.ins_files = [
+            f.replace("/leftImg8bit/", "/gtFine/")
+            .replace("_leftImg8bit.png", "_gtFine_instanceIds.png")
+            for f in self.image_files]
+
+    def get_raw_sample(self, index):
+        img = _read_rgb(self.image_files[index])
+        ins = _read_array(self.ins_files[index])
+        seg = ins // 1000  # label id of instance pixels; 0 for crowd/stuff
+        # drop caravan & trailer, then remap 24..28,31..33 -> 1..8
+        seg[(seg == 29) | (seg == 30)] = 0
+        seg[seg > 0] -= 23
+        seg[seg == 8] = 6
+        seg[seg == 9] = 7
+        seg[seg == 10] = 8
+        ins = ins * (seg > 0)
+        ins[ins < 24000] = 0
+        # dense renumbering of the surviving ids in ascending order (the
+        # smallest, background 0, stays 0)
+        _, dense = np.unique(ins, return_inverse=True)
+        return img, dense.reshape(ins.shape).astype(np.int64), seg
+
+
+class LeavesDataset(InstanceDataset):
+    """CVPPP A1 leaf segmentation: 2 classes, the first 96 images train,
+    the rest validate, the test split is a separate directory without
+    labels; crops when batches hold more than one image."""
+
+    classes = LEAVES_CLASSES
+
+    def __init__(self, cfg, split="train", imsize=256, resize=False, seed=0):
+        super().__init__(cfg, split=split, imsize=imsize, resize=resize,
+                         crop=cfg.batch_size > 1, seed=seed)
+        all_images = sorted(glob.glob(os.path.join(cfg.leaves_dir,
+                                                   "*_rgb.png")))
+        all_gt = [f.replace("_rgb", "_label") for f in all_images]
+        if split == "train":
+            self.image_files = all_images[:96]
+            self.gt_files = all_gt[:96]
+        elif split == "val":
+            self.image_files = all_images[96:]
+            self.gt_files = all_gt[96:]
+        else:  # test: separate dir, no GT
+            self.image_files = sorted(glob.glob(os.path.join(
+                cfg.leaves_test_dir, "*_rgb.png")))
+            self.gt_files = []
+
+    def get_raw_sample(self, index):
+        img = _read_rgb(self.image_files[index])
+        if self.split == "test":
+            fake = np.zeros(img.shape[:2], dtype=np.int64)
+            return img, fake, fake
+        gt = _read_array(self.gt_files[index])
+        return img, gt.copy(), (gt > 0).astype(np.int64)
 
 
 class SyntheticBlobs(InstanceDataset):
@@ -61,12 +186,19 @@ class SyntheticBlobs(InstanceDataset):
         return out
 
 
+# the file-backed catalogs, read from cfg.<name>_dir
+FILE_DATASETS = {
+    "pascal": PascalVOC,
+    "cityscapes": CityScapes,
+    "leaves": LeavesDataset,
+}
+
+
 def get_dataset(cfg, split: str) -> InstanceDataset:
     """The dataset of ``cfg.dataset`` for one split, on the uint8 wire."""
-    if cfg.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r}: the file-backed catalogs are not in "
-            f"the port yet (ROADMAP.md); use -dataset synthetic")
-    return SyntheticBlobs(cfg, split=split, imsize=cfg.imsize,
-                          resize=cfg.resize, length=cfg.synthetic_length,
-                          max_instances=cfg.synthetic_max_instances)
+    if cfg.dataset == "synthetic":
+        return SyntheticBlobs(cfg, split=split, imsize=cfg.imsize,
+                              resize=cfg.resize, length=cfg.synthetic_length,
+                              max_instances=cfg.synthetic_max_instances)
+    return FILE_DATASETS[cfg.dataset](cfg, split=split, imsize=cfg.imsize,
+                                      resize=cfg.resize, seed=cfg.seed)

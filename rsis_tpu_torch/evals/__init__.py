@@ -1,1 +1,2 @@
-"""Inference entry points of the port."""
+"""Inference and evaluation of the port: the forward, the COCO evaluator, the
+Cityscapes and CVPPP exporters, the metrics, and the overlay renderer."""

@@ -106,12 +106,14 @@ class RSISDecoder(nn.Module):
                                   or self.dropout_stop > 0)
 
     def forward(self, skips: Sequence[torch.Tensor], carry=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                plain: bool = False):
         """One decode step.
 
         skips: 5 skip features (x5..x1, NCHW); carry: the state pyramid
         of the previous step, or None for zeros; generator: the source of
-        the dropouts' random numbers, needed when ``needs_generator()``.
+        the dropouts' random numbers, needed when ``needs_generator()``;
+        plain: the cells take K8's plain version (``ConvLSTMCell``).
         Returns ((mask_logits (B, 1, 2H1, 2W1), class_probs (B, K),
         stop_logits (B, 1)), new_carry)."""
         if self.needs_generator() and generator is None:
@@ -124,7 +126,7 @@ class RSISDecoder(nn.Module):
         new_carry, side_feats = [], []
         n = len(self.clstm_list)
         for i, cell in enumerate(self.clstm_list):
-            hidden, state = cell(clstm_in, carry[i])
+            hidden, state = cell(clstm_in, carry[i], plain=plain)
             new_carry.append(state)
             if train and self.dropout > 0:
                 hidden = dropout(hidden, self.dropout, generator,

@@ -6,7 +6,8 @@ the decoder runs exactly T steps (no early stop) in a Python loop; masks
 are upsampled to the input size and the mask and stop sigmoids applied.
 Skip modes concat/sum/none with 3x3 convolutions decode through the
 kernels (``models/rowmajor_decoder.py``); ``mul`` is not
-channel-separable and, like other kernel sizes, takes the plain decode.
+channel-separable and, like other kernel sizes, takes the plain decode,
+whose 3x3 cells run the ConvLSTM step kernel K8 in inference.
 """
 
 from __future__ import annotations
@@ -41,14 +42,16 @@ def build_models(cfg: Config) -> Tuple[FeatureExtractor, RSISDecoder]:
     return encoder.eval(), decoder.eval()
 
 
-def decode_sequence(decoder: RSISDecoder, skips, T: int, carry=None):
-    """Unroll the plain decoder T steps.
+def decode_sequence(decoder: RSISDecoder, skips, T: int, carry=None,
+                    plain: bool = False):
+    """Unroll the plain decoder T steps; plain=True sends its cells to
+    K8's plain version.
 
     Returns (masks (B, T, 2H, 2W) logits, class_probs (B, T, K),
     stop_logits (B, T, 1), final_carry)."""
     masks, clss, stops = [], [], []
     for _ in range(T):
-        (mask, cls, stop), carry = decoder(skips, carry)
+        (mask, cls, stop), carry = decoder(skips, carry, plain=plain)
         masks.append(mask[:, 0])
         clss.append(cls)
         stops.append(stop)
@@ -62,10 +65,10 @@ def forward(cfg: Config, encoder: FeatureExtractor, decoder: RSISDecoder,
     """Inference forward on an NCHW image batch.
 
     The encoder runs in the dtype of its parameters on x cast to it; the
-    decoder computes in ``compute_dtype(cfg)``. plain=True replaces the two
-    kernels by their plain versions (the oracle they are held against on
-    the card). Returns (sigmoid masks (B, T, H, W), class_probs (B, T, K),
-    sigmoid stops (B, T, 1))."""
+    decoder computes in ``compute_dtype(cfg)``. plain=True replaces the
+    kernels (K1 and K2, or K8 in the plain decode) by their plain versions
+    (the oracle they are held against on the card). Returns (sigmoid
+    masks (B, T, H, W), class_probs (B, T, K), sigmoid stops (B, T, 1))."""
     T = T if T is not None else cfg.maxseqlen
     dtype = compute_dtype(cfg)
     enc_dtype = next(encoder.parameters()).dtype
@@ -75,7 +78,8 @@ def forward(cfg: Config, encoder: FeatureExtractor, decoder: RSISDecoder,
         masks, clss, stops = decode_sequence_rowmajor(
             decoder, skips, T, cfg.skip_mode, dtype=dtype, plain=plain)
     else:
-        masks, clss, stops, _ = decode_sequence(decoder, skips, T)
+        masks, clss, stops, _ = decode_sequence(decoder, skips, T,
+                                                plain=plain)
     h, w = x.shape[2], x.shape[3]
     if tuple(masks.shape[-2:]) != (h, w):
         masks = upsample_bilinear_align_corners(masks, h, w)

@@ -73,20 +73,27 @@ def _to(tree, device):
     return tree.to(device) if torch.is_tensor(tree) else tree
 
 
+def _read(cfg: Config, name: Optional[str], fname: str):
+    return torch.load(os.path.join(model_dir(cfg, name), fname),
+                      map_location="cpu", weights_only=True)
+
+
+def load_weights(cfg: Config, name: Optional[str] = None):
+    """(encoder state_dict, decoder state_dict) of a saved model, on the
+    CPU: the weights ``evals/forward.make_forward`` takes."""
+    return _read(cfg, name, ENCODER_FILE), _read(cfg, name, DECODER_FILE)
+
+
 def load_checkpoint(cfg: Config, state: TrainState,
                     name: Optional[str] = None) -> Tuple[TrainState, Config]:
     """Restore (state, saved config): the weights into ``state``'s modules
     (in place, on their device) and its optimizer states and step."""
     d = model_dir(cfg, name)
     device = next(state.decoder.parameters()).device
-
-    def read(fname):
-        return torch.load(os.path.join(d, fname), map_location="cpu",
-                          weights_only=True)
-
-    state.encoder.load_state_dict(read(ENCODER_FILE))
-    state.decoder.load_state_dict(read(DECODER_FILE))
-    optim = read(OPTIM_FILE)
+    enc, dec = load_weights(cfg, name)
+    state.encoder.load_state_dict(enc)
+    state.decoder.load_state_dict(dec)
+    optim = _read(cfg, name, OPTIM_FILE)
     state.enc_opt = _to(optim["enc_opt"], device)
     state.dec_opt = _to(optim["dec_opt"], device)
     state.step = int(optim["step"])

@@ -102,6 +102,13 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
         "import rsis_tpu_torch.train.step, rsis_tpu_torch.data.synthetic\n"
         "import rsis_tpu_torch.ops.warp, rsis_tpu_torch.data.device_aug\n"
         "import rsis_tpu_torch.train.loop, rsis_tpu_torch.cli.train\n"
+        "import rsis_tpu_torch.ops.clstm_step, rsis_tpu_torch.cli.eval\n"
+        "import rsis_tpu_torch.cli.eval_cityscapes\n"
+        "import rsis_tpu_torch.cli.eval_leaves, rsis_tpu_torch.cli.predict\n"
+        "import rsis_tpu_torch.evals.visualize\n"
+        "import rsis_tpu_torch.data.tools.pascal_precompute\n"
+        "import rsis_tpu_torch.kernels._binding as rle\n"
+        "assert rle._lib is None\n"
         "assert b.load.cache_info().currsize == 0\n"
         "try:\n"
         "    b._nvcc()\n"
@@ -114,6 +121,19 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "no nvcc" in out.stdout
+
+
+@pytest.mark.parametrize("cli", ["eval", "eval_cityscapes", "eval_leaves",
+                                 "predict"])
+def test_eval_entry_points_without_device_need_cuda(cli, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is usable")
+    import importlib
+    main = importlib.import_module(f"rsis_tpu_torch.cli.{cli}").main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-models_root", str(tmp_path), "-predict_input",
+              str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu():
