@@ -10,26 +10,47 @@
 // taken in fp32 and cast once to dg's dtype.
 //
 // What bounds it on the card: a GEMM with M = 4C, N = 9(Cx+C) and the
-// contraction over K = B * H * W pixels (up to 1M at the finest cell):
-// 2 * M * N * K operations (about 14.5 GFLOP per cell at B = 32, 256x512)
-// against dg, h_prev and x_pad read once; on the tensor cores the bytes
-// bound it at every cell but the coarsest.
+// contraction over K = B * H * W pixels, against dg, h_prev and x_pad read
+// once. At the train step's cells (256x512 input, hidden 128, B = 32)
+// cells 1-4 are about 14.5 GFLOP each and cell 0 4.8: the tensor-core rate
+// bounds cells 0-2 (M >= 128; 0.005-0.015 ms) and the bytes bound cells 3-4
+// (M = 64 and 32, up to 1M pixels and 112 MB at the finest; 0.018 and
+// 0.035 ms).
 //
-// Design. The TPU kernel carried one (4C, K) accumulator over its
-// sequential grid; here blocks run in parallel and in no order, so the
-// pixels are cut into chunks and a reduction follows in a fixed order:
-//   pass 1: block (m-block, channel block, chunk) sums its chunk into an
-//           fp32 partial tile ws[chunk][4C][9(Cx+C)] (every entry of the
-//           tile written by exactly one thread);
-//   pass 2: dwt[n, k] = sum over chunks in order, cast to dg's dtype.
-// No atomics: the result is the same on every run.
-// bf16 with C and Cx multiples of 8 runs mma.sync m16n8k16 with the
-// pixels as the contraction: a block stages R rows of a tile of columns,
-// the dg rows of its 32 gate channels [m][pixel] and the halo of its 32
-// input channels [row][col][channel]; a warp owns 16 gate rows and one
-// block of 8 channels for all 9 taps, A (dg) by ldmatrix and B (the
-// shifted halo) by ldmatrix.trans, so the im2col taps never exist.
-// Everything else runs an fp32 FMA loop over 16 x 16 output tiles.
+// Design (bf16 with C, Cx and W multiples of 8: every cell of the decode):
+//   - One launch sums pixel chunks into fp32 partial tiles; a second
+//     launch adds the chunks in chunk order, so the result is the same on
+//     every run (no atomics). Block (output tile, chunk) owns a tile of
+//     Mb gate rows x Cb input channels x 9 taps and walks its chunk's
+//     units (image, `rows` output rows, `tw` output columns) in order.
+//   - Staging is asynchronous: a ring of 2-3 units in shared memory
+//     filled by 16-byte cp.async copies of dg's and h's rows and of
+//     x_pad's rows from the 16-byte boundary at or before the unit (its
+//     (W + 2)-element rows are 4-byte aligned only; each row's phase is
+//     undone when it is transposed), zero-filled past the image, so the
+//     next unit's bytes are in flight while the tensor cores work.
+//   - The tap shift runs along the contiguous pixel axis, where ldmatrix
+//     cannot start a row at an odd pixel. The halo is therefore
+//     transposed once per unit in shared memory, [channel][pixel] ->
+//     [pixel][channel], 8x8 blocks at a time (ldmatrix, or 32-bit loads
+//     at an x row's phase, then stmatrix.trans), after which a shift by
+//     dx moves whole 16-byte rows and B comes from ldmatrix.trans.
+//   - mma.sync m16n8k16 with fp32 accumulators: a warp owns 16 WA gate
+//     rows x 8 WC channels x 9 taps (WA, WC in {1, 2}); A (dg, [pixel]
+//     contiguous) by ldmatrix, B (the shifted halo) by ldmatrix.trans.
+//     mma.sync and not wgmma: the narrowest cells have 32 gate rows,
+//     half of wgmma's 64, and each tap's B would need its own shifted
+//     descriptor; staging, which overlaps the multiply only between
+//     blocks, costs as much as the multiply at every cell, so the design
+//     spends on it first.
+//   - The tile, unit, ring and number of chunks come from the host
+//     (weight_grad_plan in ops/fused_cell_vjp.py; chip_k5_step.py --sweep
+//     times every alternative): at the bench geometry 128 x 32 tiles of
+//     eight 32 x 16 warps and 128-pixel units at cells 0-2, 64 x 48 and
+//     256 pixels at cell 3, the whole 32 x 24 gradient in six 16 x 8
+//     warps, two blocks an SM, at cell 4.
+// Everything else (fp32, widths not multiples of 8) runs an fp32 FMA loop
+// over 16 x 16 output tiles into the same partials.
 
 #include <stdint.h>
 
@@ -40,140 +61,355 @@ namespace {
 using rsis::from_f;
 using rsis::kThreads;
 using rsis::to_f;
+using bf16 = __nv_bfloat16;
 
-constexpr int kMBlk = 32;    // gate rows per block (2 warps of 16)
-constexpr int kCBlk = 32;    // input channels per block (4 warps of 8)
-constexpr int kHStride = 40;  // halo channel stride: 40 / 8 = 5 is odd
-constexpr int kRows = 4;      // output rows staged together
-constexpr int kMaxTw = 128;   // columns staged together
-
-__host__ __device__ inline int dg_stride(int tw) { return tw + 8; }
+constexpr size_t kSmemLimit = 227 * 1024;
 
 // Packed column of channel ch (of Cx + C) at tap t.
 __device__ __forceinline__ int packed_col(int tap, int ch, int C, int Cx) {
   return ch < Cx ? tap * Cx + ch : 9 * Cx + tap * C + (ch - Cx);
 }
 
-struct Units {
-  int n_row_groups, n_xt, tw;
-  __host__ __device__ int count(int B) const {
-    return B * n_row_groups * n_xt;
+// 16 bytes to shared memory, of which the first `bytes` from src and the
+// rest zero
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&b)[4],
+                                                  const void* smem) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
+// Lanes 8i .. 8i + 7 address the destination rows of matrix i; each row
+// receives a column of the matrix that v[i] holds as ldmatrix gave it.
+__device__ __forceinline__ void stmatrix_x4_trans(void* smem,
+                                                  const unsigned (&v)[4]) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1,%2,%3,%4};\n" ::"r"(addr),
+      "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+      : "memory");
+}
+
+// A flat index i = (c * nb + b) * na + a over an (., nb, na) box, stepped
+// by a fixed stride without division (the staging loops' counters).
+struct Walk {
+  int a, b, c, da, db, dc, na, nb;
+  __device__ Walk(int i, int step, int na_, int nb_)
+      : na(na_), nb(max(nb_, 1)) {
+    a = i % na;
+    b = i / na % nb;
+    c = i / (na * nb);
+    da = step % na;
+    db = step / na % nb;
+    dc = step / (na * nb);
+  }
+  __device__ __forceinline__ void next() {
+    a += da;
+    b += db;
+    c += dc;
+    if (a >= na) {
+      a -= na;
+      ++b;
+    }
+    if (b >= nb) {
+      b -= nb;
+      ++c;
+    }
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-dwt_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
-               const __nv_bfloat16* __restrict__ x_pad,
-               const __nv_bfloat16* __restrict__ dg, float* __restrict__ ws,
-               int B, int H, int W, int C, int Cx, Units units, int n_mblk,
-               int n_cblk, int n_chunks) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tw = units.tw;
-  const int twp = tw + 2;
-  const int dstr = dg_stride(tw);
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dgs = halo + (size_t)(kRows + 2) * twp * kHStride;
+// The host's plan of a tensor-core launch: block tile Mb = 16 WA wm gate
+// rows x Cb = 8 WC wc channels (wm x wc warps), units of `rows` x `tw`
+// output pixels, a ring of `stages` units, `chunks` pixel chunks.
+struct MmaPlan {
+  int wm, wc, rows, tw, stages, chunks;
+};
 
+// Shared-memory layout of one block, in bf16 elements. Every region
+// starts 16-byte aligned; each row stride is an odd number of 16-byte
+// groups, so the 8 rows of an ldmatrix or stmatrix hit 8 bank groups.
+struct Smem {
+  int rs, ds, cs, twp, raw, dgn, ring, halo;
+  __host__ __device__ Smem(const MmaPlan& p, int mb, int cb) {
+    rs = p.tw + 24;   // raw row: pixels x0 - 8 .. x0 + tw + 15 (h)
+    ds = p.tw + 8;    // dg row: pixels x0 .. x0 + tw - 1
+    cs = cb + ((cb / 8) % 2 ? 0 : 8);   // halo row: the block's channels
+    twp = p.tw + 2;   // halo rows per staged input row: padded columns
+    raw = (p.rows + 2) * cb * rs;
+    dgn = p.rows * mb * ds;
+    ring = p.stages * (raw + dgn);
+    halo = (p.rows + 2) * twp * cs;
+  }
+  // ring, halo, then 8 elements of trash for stmatrix rows past the halo
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(ring + halo + 8) * sizeof(bf16);
+  }
+};
+
+// Blocks an SM holds at once: one with the 32 x 16 warp tile (144
+// accumulators a thread), two with the smaller ones (at most 128 registers
+// a thread), where the plan's shared memory allows it.
+template <int WA, int WC>
+constexpr int kMinBlocks = WA * WC == 4 ? 1 : 2;
+
+template <int WA, int WC>
+__global__ void __launch_bounds__(256, (kMinBlocks<WA, WC>))
+dwt_mma_kernel(const bf16* __restrict__ h_prev,
+               const bf16* __restrict__ x_pad, const bf16* __restrict__ dg,
+               float* __restrict__ ws, int B, int H, int W, int C, int Cx,
+               MmaPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int cn = Cx + C;
   const int M = 4 * C;
-  const int mblk = blockIdx.x % n_mblk;
-  const int cblk = (blockIdx.x / n_mblk) % n_cblk;
-  const int chunk = blockIdx.x / (n_mblk * n_cblk);
-  const int m0 = mblk * kMBlk;
-  const int c0 = cblk * kCBlk;
-  const int n_units = units.count(B);
-  const int u_begin = (int)((long long)n_units * chunk / n_chunks);
-  const int u_end = (int)((long long)n_units * (chunk + 1) / n_chunks);
+  const int K = 9 * cn;
+  const int mb = 16 * WA * p.wm;
+  const int cb = 8 * WC * p.wc;
+  const int R = p.rows;
+  const int tw = p.tw;
+  const Smem L(p, mb, cb);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* halo = ring + L.ring;
+  bf16* trash = halo + L.halo;
+
+  const int n_mt = M / mb;
+  const int n_ct = cn / cb;
+  const int m0 = (blockIdx.x % n_mt) * mb;
+  const int c0 = (blockIdx.x / n_mt % n_ct) * cb;
+  const int chunk = blockIdx.x / (n_mt * n_ct);
+  const int n_xt = (W + tw - 1) / tw;
+  const int n_rg = (H + R - 1) / R;
+  const long long n_units = (long long)B * n_rg * n_xt;
+  const int u_begin = (int)(n_units * chunk / p.chunks);
+  const int n_my = (int)(n_units * (chunk + 1) / p.chunks) - u_begin;
+  // the block's channels: cxb x channels (c0 ..), then h channels from ch0
+  const int cxb = max(0, min(cb, Cx - c0));
+  const int ch0 = max(c0, Cx) - Cx;
+  const int chb = cb - cxb;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wmi = warp % 2;      // 16-row half of the gate rows
-  const int wci = warp / 2;      // 8-channel block of the channels
-  const bool active = m0 + 16 * wmi < M && c0 + 8 * wci < cn;
+  const int mw = 16 * WA * (warp % p.wm);   // the warp's first gate row
+  const int cw = 8 * WC * (warp / p.wm);    // the warp's first channel
 
-  float acc[9][4];
-#pragma unroll
-  for (int t = 0; t < 9; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+  auto unit_origin = [&](int u, int& b, int& y0, int& x0) {
+    x0 = (u % n_xt) * tw;
+    y0 = (u / n_xt % n_rg) * R;
+    b = u / (n_xt * n_rg);
+  };
 
-  // ldmatrix rows: A matrix (lane >> 3) = (gate half, pixel half), B
-  // matrix (lane >> 3) & 1 = pixel half
-  const int a_m = 16 * wmi + (lane & 7) + ((lane >> 3) & 1) * 8;
+  // x_pad's row (b, py, x channel ch) starts at element x_row(b, py, ch);
+  // (W + 2)-element rows are 4-byte but not 16-byte aligned: a row is
+  // staged from the 16-byte boundary at or before padded column x0, and
+  // its phase x_phase = (x_row + x0) % 8 (even) says where x0 landed
+  const long long x_numel = (long long)B * (H + 2) * Cx * (W + 2);
+  auto x_row = [&](int b, int py, int ch) {
+    return ((long long)(b * (H + 2) + py) * Cx + ch) * (W + 2);
+  };
+
+  // cp.async of unit u into ring slot s: raw[(R + 2) rows][cb][rs] holds,
+  // from column 0, x_pad's row from 16-byte boundary (padded column x0 at
+  // its phase, tw/8 + 1 copies) and h's columns x0 - 8 .. x0 + tw + 7
+  // (tw/8 + 2 copies); dg[R][mb][ds] columns x0 .. x0 + tw - 1. Each
+  // thread walks (row, channel, column) of the three copies; bytes past
+  // the image (and past x_pad's end) are zero.
+  const int qn = tw / 8;       // dg: 16-byte copies a row
+  const int qx = tw / 8 + 1;   // x
+  const int qh = tw / 8 + 2;   // h
+  const Walk w_dg(threadIdx.x, blockDim.x, qn, mb);
+  const Walk w_x(threadIdx.x, blockDim.x, qx, cxb);
+  const Walk w_h(threadIdx.x, blockDim.x, qh, chb);
+  auto fetch = [&](int u, int s) {
+    int b, y0, x0;
+    unit_origin(u, b, y0, x0);
+    bf16* raw = ring + (size_t)s * (L.raw + L.dgn);
+    bf16* dgs = raw + L.raw;
+    Walk w = w_dg;
+    for (int i = threadIdx.x; i < R * mb * qn; i += blockDim.x, w.next()) {
+      const int y = y0 + w.c;
+      const int x = x0 + 8 * w.a;
+      const bool ok = y < H && x < W;
+      cp_async16(dgs + (w.c * mb + w.b) * L.ds + 8 * w.a,
+                 ok ? dg + ((size_t)(b * H + y) * M + m0 + w.b) * W + x : dg,
+                 ok ? 16 : 0);
+    }
+    w = w_x;
+    for (int i = threadIdx.x; i < (R + 2) * cxb * qx;
+         i += blockDim.x, w.next()) {
+      const long long e = ((x_row(b, y0 + w.c, c0 + w.b) + x0) & ~7LL) +
+                          8 * w.a;
+      const bool ok = y0 + w.c < H + 2 && e < x_numel;
+      cp_async16(raw + (w.c * cb + w.b) * L.rs + 8 * w.a,
+                 ok ? x_pad + e : dg,
+                 ok ? (int)min(16LL, 2 * (x_numel - e)) : 0);
+    }
+    w = w_h;
+    for (int i = threadIdx.x; i < (R + 2) * chb * qh;
+         i += blockDim.x, w.next()) {
+      const int iy = y0 + w.c - 1;
+      const int ix = x0 - 8 + 8 * w.a;
+      const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+      cp_async16(raw + (w.c * cb + cxb + w.b) * L.rs + 8 * w.a,
+                 ok ? h_prev + ((size_t)(b * H + iy) * C + ch0 + w.b) * W +
+                          ix
+                    : dg,
+                 ok ? 16 : 0);
+    }
+  };
+
+  // raw (slot s) -> halo[(R + 2) rows][tw + 2 padded columns][cs] in 8x8
+  // blocks (8 channels x 8 padded columns), four neighbouring column
+  // blocks a warp instruction: x rows by 32-bit loads at their phase, h
+  // rows by ldmatrix (raw column j is padded column j - 7), either way
+  // the fragment ldmatrix would give, then stmatrix.trans; rows of a
+  // block outside the padded columns go to the trash
+  const int nq4 = (tw / 8 + 5) / 4;   // quads of column blocks a row
+  const int nquad = (R + 2) * (cb / 8) * nq4;
+  const int nw = blockDim.x / 32;
+  const Walk w_t(warp, nw, nq4, cb / 8);
+  auto transpose = [&](int u, int s) {
+    int b, y0, x0;
+    unit_origin(u, b, y0, x0);
+    const bf16* raw = ring + (size_t)s * (L.raw + L.dgn);
+    Walk w = w_t;
+    for (int qd = warp; qd < nquad; qd += nw, w.next()) {
+      const int r = w.c;
+      const int g = w.b;
+      const int q = 4 * w.a + (lane >> 3);   // this lane's store block
+      const bool is_h = 8 * g >= cxb;
+      unsigned v[4];
+      if (is_h) {
+        rsis::ldmatrix_x4(v, raw + (r * cb + 8 * g + (lane & 7)) * L.rs +
+                                 8 * q);
+      } else {
+        const int c = 8 * g + (lane >> 2);
+        const int phase = (int)((x_row(b, y0 + r, c0 + c) + x0) & 7);
+        const bf16* row = raw + (r * cb + c) * L.rs + phase + 2 * (lane & 3);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          v[m] = *reinterpret_cast<const unsigned*>(row + 8 * (4 * w.a + m));
+      }
+      const int pc = 8 * q + (lane & 7) - (is_h ? 7 : 0);
+      stmatrix_x4_trans(pc >= 0 && pc < L.twp
+                            ? halo + (size_t)(r * L.twp + pc) * L.cs + 8 * g
+                            : trash,
+                        v);
+    }
+  };
+
+  float acc[WA][WC][9][4];
+#pragma unroll
+  for (int a = 0; a < WA; ++a)
+#pragma unroll
+    for (int c = 0; c < WC; ++c)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][c][t][e] = 0.0f;
+
+  // ldmatrix rows: A matrix (lane >> 3) = (gate half, pixel half); B
+  // matrix (lane >> 3) & 1 = pixel half, lane >> 4 = channel block (x4)
+  const int a_m = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_p = (lane >> 4) * 8;
   const int b_p = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  const int b_c = (lane >> 4) * 8;
 
-  for (int u = u_begin; u < u_end; ++u) {
-    const int xt = u % units.n_xt;
-    const int y0 = (u / units.n_xt) % units.n_row_groups * kRows;
-    const int b = u / (units.n_xt * units.n_row_groups);
-    const int x0 = xt * tw;
-    __syncthreads();  // the previous unit's fragments are read
-    // halo: rows y0 - 1 .. y0 + kRows of channels c0 .. c0 + 31
-    for (int i = threadIdx.x; i < (kRows + 2) * kCBlk * twp;
-         i += blockDim.x) {
-      const int col = i % twp;
-      const int cc = (i / twp) % kCBlk;
-      const int dy = i / (twp * kCBlk);
-      const int ch = c0 + cc;
-      __nv_bfloat16 v = zero;
-      if (ch < Cx) {
-        const int px = x0 + col;
-        if (px < W + 2 && y0 + dy < H + 2)
-          v = x_pad[((size_t)(b * (H + 2) + y0 + dy) * Cx + ch) * (W + 2) +
-                    px];
-      } else if (ch < cn) {
-        const int iy = y0 + dy - 1;
-        const int ix = x0 + col - 1;
-        if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-          v = h_prev[((size_t)(b * H + iy) * C + (ch - Cx)) * W + ix];
-      }
-      halo[(dy * twp + col) * kHStride + cc] = v;
-    }
-    // dg rows y0 .. y0 + kRows - 1 of gate rows m0 .. m0 + 31; pixels past
-    // the image are zero, so they add nothing
-    for (int i = threadIdx.x; i < kRows * kMBlk * tw; i += blockDim.x) {
-      const int px = i % tw;
-      const int m = (i / tw) % kMBlk;
-      const int rr = i / (tw * kMBlk);
-      __nv_bfloat16 v = zero;
-      if (y0 + rr < H && x0 + px < W && m0 + m < M)
-        v = dg[((size_t)(b * H + y0 + rr) * M + m0 + m) * W + x0 + px];
-      dgs[(rr * kMBlk + m) * dstr + px] = v;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int rr = 0; rr < kRows; ++rr) {
-      for (int p0 = 0; p0 < tw; p0 += 16) {
-        unsigned a[4];
-        rsis::ldmatrix_x4(a, dgs + (size_t)(rr * kMBlk + a_m) * dstr + p0 +
-                                 a_p);
+  auto compute = [&](int s, int u) {
+    int b, y0, x0;
+    unit_origin(u, b, y0, x0);
+    const bf16* dgs = ring + (size_t)s * (L.raw + L.dgn) + L.raw;
+    const int r_end = min(R, H - y0);
+    const int p_end = min(tw, W - x0);
+    for (int r = 0; r < r_end; ++r) {
+      for (int p0 = 0; p0 < p_end; p0 += 16) {
+        unsigned a[WA][4];
+#pragma unroll
+        for (int wa = 0; wa < WA; ++wa)
+          rsis::ldmatrix_x4(
+              a[wa], dgs + (r * mb + mw + 16 * wa + a_m) * L.ds + p0 + a_p);
 #pragma unroll
         for (int t = 0; t < 9; ++t) {
-          unsigned bb[2];
-          rsis::ldmatrix_x2_trans(
-              bb, halo + (size_t)((rr + t / 3) * twp + p0 + b_p + t % 3) *
-                             kHStride +
-                      8 * wci);
-          rsis::mma_bf16(acc[t], a, bb[0], bb[1]);
+          const bf16* bp =
+              halo + (size_t)((r + t / 3) * L.twp + p0 + t % 3 + b_p) * L.cs +
+              cw;
+          if constexpr (WC == 2) {
+            unsigned bb[4];
+            ldmatrix_x4_trans(bb, bp + b_c);
+#pragma unroll
+            for (int wa = 0; wa < WA; ++wa) {
+              rsis::mma_bf16(acc[wa][0][t], a[wa], bb[0], bb[1]);
+              rsis::mma_bf16(acc[wa][1][t], a[wa], bb[2], bb[3]);
+            }
+          } else {
+            unsigned bb[2];
+            rsis::ldmatrix_x2_trans(bb, bp);
+#pragma unroll
+            for (int wa = 0; wa < WA; ++wa)
+              rsis::mma_bf16(acc[wa][0][t], a[wa], bb[0], bb[1]);
+          }
         }
       }
     }
+  };
+
+  // the ring: unit k waits for its copies, the slot freed by unit k - 1
+  // takes unit k + stages - 1, then unit k is transposed and multiplied
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < n_my) fetch(u_begin + s, s);
+    cp_async_commit();
   }
-  if (!active) return;
-  // D fragment: rows lane / 4 (+ 8), columns 2 * (lane % 4) (+ 1)
-  const int K = 9 * cn;
+  for (int k = 0; k < n_my; ++k) {
+    if (p.stages == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const int next = k + p.stages - 1;
+    if (next < n_my) fetch(u_begin + next, next % p.stages);
+    cp_async_commit();
+    transpose(u_begin + k, k % p.stages);
+    __syncthreads();
+    compute(k % p.stages, u_begin + k);
+  }
+  cp_async_wait<0>();
+
+  // D fragment: rows lane / 4 (+ 8), columns 2 * (lane % 4) (+ 1): two
+  // neighbouring channels are neighbouring packed columns
   float* out = ws + (size_t)chunk * M * K;
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
+  for (int wa = 0; wa < WA; ++wa)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + 16 * wmi + (lane >> 2) + (e >> 1) * 8;
-      const int ch = c0 + 8 * wci + 2 * (lane & 3) + (e & 1);
-      if (m < M && ch < cn)
-        out[(size_t)m * K + packed_col(t, ch, C, Cx)] = acc[t][e];
-    }
+    for (int wc = 0; wc < WC; ++wc)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = m0 + mw + 16 * wa + (lane >> 2) + 8 * half;
+          const int ch = c0 + cw + 8 * wc + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(out + (size_t)m * K +
+                                     packed_col(t, ch, C, Cx)) =
+              make_float2(acc[wa][wc][t][2 * half],
+                          acc[wa][wc][t][2 * half + 1]);
+        }
 }
 
 // fp32 FMA: block = a 16 x 16 tile of (gate row, packed column) and one
@@ -244,118 +480,119 @@ dwt_fma_kernel(const T* __restrict__ h_prev, const T* __restrict__ x_pad,
   if (m < M && k < K) ws[((size_t)chunk * M + m) * K + k] = acc;
 }
 
+// dwt[i] = sum over chunks c in order of ws[c][i], cast to dwt's dtype;
+// eight chunks' loads in flight at a time, added in chunk order.
 template <typename T>
-__global__ void reduce_kernel(const float* __restrict__ ws,
-                              T* __restrict__ out, int n_chunks,
-                              long long n) {
+__global__ void dwt_reduce_kernel(const float* __restrict__ ws,
+                                  T* __restrict__ out, int n_chunks,
+                                  long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) s += ws[(size_t)c * n + i];
+  int c = 0;
+  for (; c + 8 <= n_chunks; c += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = ws[(size_t)(c + j) * n + i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += v[j];
+  }
+  for (; c < n_chunks; ++c) s += ws[(size_t)c * n + i];
   out[i] = from_f<T>(s);
 }
 
-bool use_mma(int C, int Cx, int dtype) {
-  return dtype == 1 && C % 8 == 0 && Cx % 8 == 0;
-}
-
-Units mma_units(int H, int W) {
-  Units u;
-  u.tw = ((W + 15) / 16) * 16;
-  if (u.tw > kMaxTw) u.tw = kMaxTw;
-  u.n_xt = (W + u.tw - 1) / u.tw;
-  u.n_row_groups = (H + kRows - 1) / kRows;
-  return u;
-}
-
-// Blocks of one chunk, and the number of chunks: enough blocks for two
-// per SM (132 SMs), no more chunks than units of work.
-void plan(int B, int H, int W, int C, int Cx, int dtype, int* per_chunk,
-          int* n_chunks) {
-  long long units;
-  if (use_mma(C, Cx, dtype)) {
-    *per_chunk = ((4 * C + kMBlk - 1) / kMBlk) * ((Cx + C + kCBlk - 1) / kCBlk);
-    units = mma_units(H, W).count(B);
-  } else {
-    *per_chunk = ((4 * C + 15) / 16) * ((9 * (Cx + C) + 15) / 16);
-    units = ((long long)B * H * W + 255) / 256;
-  }
-  long long chunks = (264 + *per_chunk - 1) / *per_chunk;
-  if (chunks > units) chunks = units;
-  if (chunks < 1) chunks = 1;
-  *n_chunks = (int)chunks;
+template <int WA, int WC>
+cudaError_t launch_mma(const bf16* h_prev, const bf16* x_pad, const bf16* dg,
+                       float* ws, int B, int H, int W, int C, int Cx,
+                       const MmaPlan& p, cudaStream_t s) {
+  const int mb = 16 * WA * p.wm;
+  const int cb = 8 * WC * p.wc;
+  const size_t smem = Smem(p, mb, cb).bytes();
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dwt_mma_kernel<WA, WC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (long long)(4 * C / mb) * ((Cx + C) / cb) * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dwt_mma_kernel<WA, WC><<<(unsigned)blocks, 32 * p.wm * p.wc, smem, s>>>(
+      h_prev, x_pad, dg, ws, B, H, W, C, Cx, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats of fp32 workspace that rsis_weight_grad needs for these shapes.
-extern "C" long long rsis_weight_grad_workspace(int B, int H, int W, int C,
-                                                int Cx, int dtype) {
-  int per_chunk, n_chunks;
-  plan(B, H, W, C, Cx, dtype, &per_chunk, &n_chunks);
-  return (long long)n_chunks * 4 * C * 9 * (Cx + C);
-}
-
 // h_prev (B, H, C, W), x_pad (B, H+2, Cx, W+2) or null when Cx == 0,
 // dg (B, H, 4C, W) -> dwt (4C, 9(Cx+C)) in dg's dtype; ws holds
-// ws_floats floats (rsis_weight_grad_workspace). dtype: 0 = float32,
-// 1 = bfloat16. Returns the first failing launch's cudaError_t, 0 on
-// success.
+// ws_floats floats, at least chunks * 4C * 9(Cx+C). dtype: 0 = float32,
+// 1 = bfloat16. The plan (weight_grad_plan): mma = 0 runs the FMA loop in
+// `chunks` pixel chunks (the other fields unused); mma = 1 the tensor-core
+// loop (bfloat16, C, Cx and W multiples of 8) with warp tiles of 16 wa
+// gate rows x 8 wc channels, wm x wcn warps, units of `rows` x `tw`
+// pixels and a ring of `stages` units. Returns the first failing launch's
+// cudaError_t, 0 on success; cudaErrorInvalidValue for a plan that does
+// not fit the shapes.
 extern "C" int rsis_weight_grad(const void* h_prev, const void* x_pad,
                                 const void* dg, void* ws, long long ws_floats,
                                 void* dwt, int B, int H, int W, int C, int Cx,
-                                int dtype, void* stream) {
+                                int dtype, int mma, int wa, int wc, int wm,
+                                int wcn, int rows, int tw, int stages,
+                                int chunks, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cx < 0 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || chunks < 1)
     return (int)cudaErrorInvalidValue;
-  if (ws_floats < rsis_weight_grad_workspace(B, H, W, C, Cx, dtype))
-    return (int)cudaErrorInvalidValue;
+  const int M = 4 * C;
+  const int cn = Cx + C;
+  const long long n = (long long)M * 9 * cn;
+  if (ws_floats < n * chunks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int per_chunk, n_chunks;
-  plan(B, H, W, C, Cx, dtype, &per_chunk, &n_chunks);
-  const long long blocks = (long long)per_chunk * n_chunks;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
-  if (use_mma(C, Cx, dtype)) {
-    const Units u = mma_units(H, W);
-    const size_t smem =
-        ((size_t)(kRows + 2) * (u.tw + 2) * kHStride +
-         (size_t)kRows * kMBlk * dg_stride(u.tw)) *
-        sizeof(__nv_bfloat16);
-    cudaError_t err = cudaFuncSetAttribute(
-        dwt_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    using bf = __nv_bfloat16;
-    dwt_mma_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
-        static_cast<const bf*>(h_prev), static_cast<const bf*>(x_pad),
-        static_cast<const bf*>(dg), w, B, H, W, C, Cx, u,
-        (4 * C + kMBlk - 1) / kMBlk, (Cx + C + kCBlk - 1) / kCBlk, n_chunks);
+  cudaError_t err;
+  if (mma) {
+    if (dtype != 1 || C % 8 || Cx % 8 || W % 8 || wa < 1 || wa > 2 ||
+        wc < 1 || wc > 2 || wm < 1 || wcn < 1 || wm * wcn > 8 ||
+        M % (16 * wa * wm) || cn % (8 * wc * wcn) || rows < 1 || tw < 16 ||
+        tw % 16 || (stages != 2 && stages != 3))
+      return (int)cudaErrorInvalidValue;
+    const MmaPlan p{wm, wcn, rows, tw, stages, chunks};
+    using T = bf16;
+    const T* hp = static_cast<const T*>(h_prev);
+    const T* xp = static_cast<const T*>(x_pad);
+    const T* gp = static_cast<const T*>(dg);
+    if (wa == 1 && wc == 1)
+      err = launch_mma<1, 1>(hp, xp, gp, w, B, H, W, C, Cx, p, s);
+    else if (wa == 1)
+      err = launch_mma<1, 2>(hp, xp, gp, w, B, H, W, C, Cx, p, s);
+    else if (wc == 1)
+      err = launch_mma<2, 1>(hp, xp, gp, w, B, H, W, C, Cx, p, s);
+    else
+      err = launch_mma<2, 2>(hp, xp, gp, w, B, H, W, C, Cx, p, s);
   } else {
-    const int n_mt = (4 * C + 15) / 16;
-    const int n_kt = (9 * (Cx + C) + 15) / 16;
+    const int n_mt = (M + 15) / 16;
+    const int n_kt = (9 * cn + 15) / 16;
+    const long long blocks = (long long)n_mt * n_kt * chunks;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
       dwt_fma_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
           static_cast<const float*>(h_prev), static_cast<const float*>(x_pad),
           static_cast<const float*>(dg), w, B, H, W, C, Cx, n_mt, n_kt,
-          n_chunks);
+          chunks);
     else
-      dwt_fma_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(h_prev),
-          static_cast<const __nv_bfloat16*>(x_pad),
-          static_cast<const __nv_bfloat16*>(dg), w, B, H, W, C, Cx, n_mt,
-          n_kt, n_chunks);
+      dwt_fma_kernel<bf16><<<(unsigned)blocks, kThreads, 0, s>>>(
+          static_cast<const bf16*>(h_prev), static_cast<const bf16*>(x_pad),
+          static_cast<const bf16*>(dg), w, B, H, W, C, Cx, n_mt, n_kt,
+          chunks);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)4 * C * 9 * (Cx + C);
   const int threads = 256;
   const long long rblocks = (n + threads - 1) / threads;
   if (dtype == 0)
-    reduce_kernel<float><<<(unsigned)rblocks, threads, 0, s>>>(
-        w, static_cast<float*>(dwt), n_chunks, n);
+    dwt_reduce_kernel<float><<<(unsigned)rblocks, threads, 0, s>>>(
+        w, static_cast<float*>(dwt), chunks, n);
   else
-    reduce_kernel<__nv_bfloat16><<<(unsigned)rblocks, threads, 0, s>>>(
-        w, static_cast<__nv_bfloat16*>(dwt), n_chunks, n);
+    dwt_reduce_kernel<bf16><<<(unsigned)rblocks, threads, 0, s>>>(
+        w, static_cast<bf16*>(dwt), chunks, n);
   return (int)cudaGetLastError();
 }

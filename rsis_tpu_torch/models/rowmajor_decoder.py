@@ -16,9 +16,8 @@ the linearity of the gate conv:
 
 The S terms, h and c are stored in the compute dtype between cells and
 steps; the upsample products accumulate in fp32 and are cast after each
-product, as the reference does. Under autograd in bf16, the S terms'
-cotangent is summed over the T steps in fp32 and rounded once
-(``_FP32Sum``; the reference sums it in bf16, one rounding per step).
+product, as the reference does. Under autograd the S terms' cotangent is
+summed over the T steps in their dtype, as the reference sums it.
 
 The same loop trains (the counterpart of ``rowmajor_decoder_step``'s
 differentiable path): the cells run through ``FusedCellFunction`` and the
@@ -44,68 +43,11 @@ from .decoder import RSISDecoder, decoder_widths
 CHANNEL_SEPARABLE = ("concat", "sum", "none")
 
 
-class _FP32Sum(torch.autograd.Function):
-    """The hoisted S terms, read by every decode step, with their
-    cotangents summed over the steps in fp32.
-
-    Autograd sums the cotangents of a tensor used T times in that tensor's
-    dtype: for bf16 S terms, T roundings to bf16. ``apply(acc, *s)``
-    returns a scalar fp32 stand-in that carries the S terms' graph;
-    ``_ReadFP32Sum`` hands a decode step the S terms' own data (views, no
-    copy) and adds their cotangents into the fp32 buffers of the list
-    ``acc``, in place; once every step has added its own, the stand-in's
-    backward hands the S terms the buffers, rounded once."""
-
-    @staticmethod
-    def forward(ctx, acc, *s_terms):
-        ctx.acc = acc
-        ctx.dtypes = [s.dtype for s in s_terms]
-        return s_terms[0].new_zeros((), dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, _):
-        return (None,) + tuple(
-            a.to(dt) if a is not None and need else None
-            for a, dt, need in zip(ctx.acc, ctx.dtypes,
-                                   ctx.needs_input_grad[1:]))
-
-
-class _ReadFP32Sum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, anchor, acc, *s_terms):
-        ctx.acc = acc
-        ctx.set_materialize_grads(False)
-        return tuple(s.view_as(s) for s in s_terms)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        anchor_grad = None
-        for i, g in enumerate(grads):
-            if g is None:
-                continue
-            if ctx.acc[i] is None:
-                ctx.acc[i] = g.float()
-            else:
-                ctx.acc[i].add_(g)
-            anchor_grad = g.new_zeros((), dtype=torch.float32)
-        return (anchor_grad, None) + (None,) * len(grads)
-
-
-def _s_terms(cells):
-    """The S terms one decode step reads, one per cell (``_FP32Sum``)."""
-    if cells[0]["s_sum"] is None:
-        return [c["s"] for c in cells]
-    anchor, acc = cells[0]["s_sum"]
-    return _ReadFP32Sum.apply(anchor, acc, *(c["s"] for c in cells))
-
-
 def _hoist_cells_rowmajor(decoder: RSISDecoder,
                           skips: Sequence[torch.Tensor], skip_mode: str,
                           dtype: torch.dtype):
-    """Per cell: packed weight, S term (B, H, 4C, W) in ``dtype``, cx, ch,
-    and "s_sum", shared by the cells: (the fp32 stand-in, its buffers)
-    of bf16 S terms under autograd (``_FP32Sum``), None otherwise. Decode
-    steps read S through ``_s_terms``.
+    """Per cell: packed weight, S term (B, H, 4C, W) in ``dtype``, cx and
+    ch.
 
     skips are NCHW. The gate weight (4C, Cin, 3, 3) splits along Cin into
     the up-input (kx), skip (ks) and hidden (kh) parts."""
@@ -141,14 +83,8 @@ def _hoist_cells_rowmajor(decoder: RSISDecoder,
             step_kernel, cx = torch.cat([kx, kh], dim=1), cp
         cells.append({
             "wt": pack_cell_weights(step_kernel, cx, ch, dtype=dtype),
-            "s": s_term.permute(0, 2, 1, 3).contiguous(), "s_sum": None,
-            "cx": cx, "ch": ch})
-    s_terms = [c["s"] for c in cells]
-    if dtype != torch.float32 and any(t.requires_grad for t in s_terms):
-        acc = [None] * len(cells)
-        s_sum = (_FP32Sum.apply(acc, *s_terms), acc)
-        for c in cells:
-            c["s"], c["s_sum"] = c["s"].detach(), s_sum
+            "s": s_term.permute(0, 2, 1, 3).contiguous(), "cx": cx,
+            "ch": ch})
     return cells
 
 
@@ -186,14 +122,13 @@ def rowmajor_decoder_step(decoder: RSISDecoder, cells, carry,
     owns the mask head. plain=True runs the kernels' plain versions."""
     side_feats, new_carry = [], []
     h = None
-    s_terms = _s_terms(cells)
     for i, cell in enumerate(cells):
         h_prev, c_prev = carry[i]
         x_pad = None
         if i > 0:
             x_pad = _upsample_rowmajor(h, h_prev.shape[1], h_prev.shape[3],
                                        pad=True)
-        args = (h_prev, x_pad, c_prev, s_terms[i], cell["wt"])
+        args = (h_prev, x_pad, c_prev, cell["s"], cell["wt"])
         if plain:
             h, c = fused_cell_rowmajor_ref(*args, cx=cell["cx"],
                                            ch=cell["ch"])

@@ -27,7 +27,9 @@ tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -145,14 +147,138 @@ def weight_grad_ref(h_prev, x_pad, dg, *, cx: int, ch: int) -> torch.Tensor:
     return torch.cat(blocks, dim=1).to(dg.dtype)
 
 
+# The card the tensor-core plan is sized for: an H100's SMs, the shared
+# memory of one SM and what one block may take (csrc/weight_grad.cu checks
+# the latter again).
+SM_COUNT = 132
+SMEM_PER_SM = 228 * 1024
+SMEM_LIMIT = 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightGradPlan:
+    """How ``csrc/weight_grad.cu`` cuts one weight gradient.
+
+    mma: the tensor-core loop (bf16, C, Cx and W multiples of 8) with warp
+    tiles of 16 wa gate rows x 8 wc channels x 9 taps, warps_m x warps_c
+    warps a block, units of ``rows`` output rows x ``tw`` columns and a
+    ring of ``stages`` units; otherwise the FMA loop over 16 x 16 tiles.
+    Either way ``chunks`` pixel chunks each write an fp32 partial of the
+    whole (4C, 9(Cx+C)) gradient, summed in chunk order."""
+    mma: bool
+    chunks: int
+    wa: int = 0
+    wc: int = 0
+    warps_m: int = 0
+    warps_c: int = 0
+    rows: int = 0
+    tw: int = 0
+    stages: int = 0
+
+    @property
+    def block_m(self) -> int:
+        return 16 * self.wa * self.warps_m
+
+    @property
+    def block_c(self) -> int:
+        return 8 * self.wc * self.warps_c
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block of the tensor-core loop (the
+        kernel's ``Smem``): the ring of raw halo and dg rows, the
+        transposed halo and 16 bytes of trash."""
+        rs, ds, twp = self.tw + 24, self.tw + 8, self.tw + 2
+        cb = self.block_c
+        cs = cb + (0 if (cb // 8) % 2 else 8)
+        ring = self.stages * ((self.rows + 2) * cb * rs
+                              + self.rows * self.block_m * ds)
+        return 2 * (ring + (self.rows + 2) * twp * cs + 8)
+
+    def workspace_floats(self, ch: int, cx: int) -> int:
+        return self.chunks * 4 * ch * 9 * (cx + ch)
+
+    def units(self, b: int, h: int, w: int) -> int:
+        """Units of work of the tensor-core loop."""
+        return b * -(-h // self.rows) * -(-w // self.tw)
+
+
+def weight_grad_plan(b: int, h: int, w: int, ch: int, cx: int,
+                     dtype: torch.dtype) -> WeightGradPlan:
+    """The launch plan of K5 for dg (b, h, 4ch, w) and cx x channels.
+
+    Tensor cores (bf16, ch, cx and w multiples of 8):
+      - the block tile of at most 8 warps that divides (4ch, cx + ch) with
+        the most gate rows x channels (each staged byte feeds more
+        products), then the most warps, then gate rows nearest 4x the
+        channels (fewer channels to transpose per product);
+      - blocks per SM: one with the 32 x 16 warp tile (its 144
+        accumulators take the registers), else two; the shared memory of
+        a block is that share of the SM's;
+      - the unit (rows x tw pixels) with the most useful pixels, up to
+        256, whose 2-unit ring fits, then the fewest bytes staged per
+        pixel (halo rows, the 8-column edges of h's rows, padding past the
+        image), then the widest; a 3-unit ring where it fits;
+      - chunks that balance a block's products against the write and read
+        of its fp32 partial (sqrt(operations per tile / partial bytes)),
+        at most one wave of blocks and one unit per chunk.
+    FMA: 16 x 16 tiles and enough chunks for about two blocks per SM."""
+    m, cn = 4 * ch, cx + ch
+    if not (dtype == torch.bfloat16 and ch % 8 == 0 and cx % 8 == 0
+            and w % 8 == 0):
+        tiles = -(-m // 16) * -(-9 * cn // 16)
+        units = -(-b * h * w // 256)
+        return WeightGradPlan(mma=False, chunks=max(1, min(
+            -(-2 * SM_COUNT // tiles), units)))
+    best = None
+    for wa in (1, 2):
+        for wc in (1, 2):
+            for wm in range(1, 9):
+                for wcn in range(1, 8 // wm + 1):
+                    mb, cb = 16 * wa * wm, 8 * wc * wcn
+                    if m % mb or cn % cb:
+                        continue
+                    key = (mb * cb, wm * wcn, -abs(math.log2(mb / (4 * cb))),
+                           wa * wc)
+                    if best is None or key > best[0]:
+                        best = (key, (wa, wc, wm, wcn))
+    wa, wc, wm, wcn = best[1]
+    mb, cb = 16 * wa * wm, 8 * wc * wcn
+    per_sm = 1 if wa * wc == 4 else 2
+    budget = min(SMEM_LIMIT, SMEM_PER_SM // per_sm - 1024)
+    w16 = -(-w // 16) * 16
+    unit = None
+    for rows in (8, 4, 2, 1):
+        for tw in (128, 64, 32, 16):
+            if tw > w16 or (rows > h and rows > 1):
+                continue
+            plan = WeightGradPlan(True, 1, wa, wc, wm, wcn, rows, tw, 2)
+            if plan.smem_bytes() > budget:
+                continue
+            pad = (-(-h // rows) * rows / h) * (-(-w // tw) * tw / w)
+            staged = (rows + 2) / rows * (tw + 16) / tw * pad
+            key = (min(rows * tw, 256) / pad, -staged, tw)
+            if unit is None or key > unit[0]:
+                unit = (key, plan)
+    if unit is None:
+        raise ValueError(f"no K5 unit fits {budget} bytes of shared memory "
+                         f"at C={ch}, Cx={cx}")
+    plan = unit[1]
+    if dataclasses.replace(plan, stages=3).smem_bytes() <= budget:
+        plan = dataclasses.replace(plan, stages=3)
+    tiles = (m // mb) * (cn // cb)
+    tile_ops = 2.0 * m * 9 * cn * b * h * w / tiles
+    partial_bytes = 2 * 4 * m * 9 * cn
+    chunks = min(round(math.sqrt(tile_ops / partial_bytes)),
+                 per_sm * SM_COUNT // tiles, plan.units(b, h, w))
+    return dataclasses.replace(plan, chunks=max(1, chunks))
+
+
 @functools.lru_cache(maxsize=None)
 def _dwt_lib() -> ctypes.CDLL:
     lib = _build.load("weight_grad")
-    lib.rsis_weight_grad_workspace.argtypes = [ctypes.c_int] * 6
-    lib.rsis_weight_grad_workspace.restype = ctypes.c_longlong
     lib.rsis_weight_grad.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 15 + [ctypes.c_void_p])
     lib.rsis_weight_grad.restype = ctypes.c_int
     return lib
 
@@ -163,9 +289,10 @@ def weight_grad_rowmajor(h_prev, x_pad, dg, *, cx: int,
     dtype (summed in fp32).
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16,
-    contiguous) launch ``csrc/weight_grad.cu`` (two passes: chunk partials,
-    then their sum in a fixed order, so the result is the same on every
-    run) and count one launch in ``weight_grad_rowmajor.launches``."""
+    contiguous) launch ``csrc/weight_grad.cu`` as ``weight_grad_plan``
+    cuts it (two passes: chunk partials, then their sum in a fixed order,
+    so the result is the same on every run) and count one launch in
+    ``weight_grad_rowmajor.launches``."""
     b, h, c_dim, w = h_prev.shape
     if c_dim != ch or tuple(dg.shape) != (b, h, 4 * ch, w):
         raise ValueError(f"h_prev {tuple(h_prev.shape)} / dg "
@@ -182,9 +309,9 @@ def weight_grad_rowmajor(h_prev, x_pad, dg, *, cx: int,
     if dg.device.type != "cuda":
         raise ValueError(f"no kernel for device {dg.device}")
     _kernel_operands("weight gradient", tensors, dg.dtype)
-    code = _DTYPE_CODES[dg.dtype]
+    plan = weight_grad_plan(b, h, w, ch, cx, dg.dtype)
     lib = _dwt_lib()
-    n_ws = lib.rsis_weight_grad_workspace(b, h, w, ch, cx, code)
+    n_ws = plan.workspace_floats(ch, cx)
     ws = torch.empty(n_ws, dtype=torch.float32, device=dg.device)
     dwt = torch.empty((4 * ch, 9 * (cx + ch)), dtype=dg.dtype,
                       device=dg.device)
@@ -193,7 +320,9 @@ def weight_grad_rowmajor(h_prev, x_pad, dg, *, cx: int,
         err = lib.rsis_weight_grad(
             h_prev.data_ptr(), None if x_pad is None else x_pad.data_ptr(),
             dg.data_ptr(), ws.data_ptr(), n_ws, dwt.data_ptr(), b, h, w, ch,
-            cx, code, stream)
+            cx, _DTYPE_CODES[dg.dtype], int(plan.mma), plan.wa, plan.wc,
+            plan.warps_m, plan.warps_c, plan.rows, plan.tw, plan.stages,
+            plan.chunks, stream)
     if err != 0:
         raise RuntimeError(f"weight gradient kernel launch failed: CUDA "
                            f"error {err}")
