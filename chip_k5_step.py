@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K5 (the weight gradient) per cell and the bench-geometry train step,
-timed on one GPU, for comparing two trees of the port in one call.
+"""K5 (the weight gradient) and K3 (the pullback conv) per cell and the
+bench-geometry train step, timed on one GPU, for comparing two trees of
+the port in one call.
 
 Runs the ``rsis_tpu_torch`` package beside it (run a copy of this script
 from the root of another tree to time that tree), with ``chip_smoke.py``'s
@@ -13,21 +14,32 @@ inputs, timers and bounds:
 - --sweep: every tensor-core plan of K5 at those cells and batches
   (``weight_grad_plan`` replaced for the call), each checked against the
   plain version, the fastest beside the chosen one;
+- --k3: ``conv3x3_rowmajor`` (K3) at the same cells and batches: device
+  ms of one launch, of the cell backward's pullback (``conv3x3_pullback``
+  where the tree has it, else the stacked conv with the slice and pad
+  the backward then copied), its bound, ``F.conv2d`` on NCHW copies of
+  the same inputs, and the error against ``conv3x3_rowmajor_ref``;
+- --k3-sweep: every tensor-core plan of K3 at those cells and batches
+  (``conv3x3_plan`` replaced for the call), each checked against the
+  plain version, the fastest beside the chosen one;
 - --step: the train step at --batch, --steps (resnet101, device
   augmentation on, bf16): a warm-up step, then --iters steps each timed
   by the host clock around a synchronised step; with --profile, device
-  time by kernel over one more step and K5's share of it.
+  time by kernel over one more step: K5's and K3's kernels by name and
+  their shares, and PyTorch's copy kernels (direct_copy).
 
 Prints one JSON object as its last line (and writes it to --out).
-Usage: python3 chip_k5_step.py [--k5] [--k5-batch 32 8] [--sweep] [--step]
-                               [--batch 32] [--steps 20] [--iters 5]
-                               [--profile] [--seed 0] [--out FILE]
+Usage: python3 chip_k5_step.py [--k5] [--k3] [--k5-batch 32 8] [--sweep]
+                               [--k3-sweep] [--step] [--batch 32]
+                               [--steps 20] [--iters 5] [--profile]
+                               [--seed 0] [--out FILE]
 Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -87,7 +99,6 @@ def sweep_k5(cs, b: int, gen, top: int = 5) -> dict:
     more blocks an SM) at the train step's five cells, timed like time_k5
     and checked against the plain version; returns each cell's fastest
     plans beside the one weight_grad_plan chooses."""
-    import dataclasses
     import itertools
     from rsis_tpu_torch.models.decoder import decoder_widths
     from rsis_tpu_torch.ops import fused_cell_vjp as fcv
@@ -145,6 +156,141 @@ def sweep_k5(cs, b: int, gen, top: int = 5) -> dict:
     return out
 
 
+def _k3_cells(cs, b, gen):
+    """(cell, geom, dg, wpack) at the train step's five cells: dg from the
+    plain K4 on random operands, wpack the transposed cell weight."""
+    from rsis_tpu_torch.models.decoder import decoder_widths
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    widths = decoder_widths(128)
+    for i, ch in enumerate(widths):
+        hh, ww = cs.TRAIN_HW[0] // 2 ** (5 - i), cs.TRAIN_HW[1] // 2 ** (5 - i)
+        cx = widths[i - 1] if i else 0
+        ops, (dh, dc) = cs.bwd_inputs((hh, ww, ch, cx), b, torch.bfloat16,
+                                      gen)
+        dg = fcv.cell_backward_dgates_ref(*ops, dh, dc, cx=cx, ch=ch)[0]
+        wpack = fcv.conv_transpose_weights(ops[4], cx, ch,
+                                           "xh" if cx else "h")
+        yield i, (hh, ww, ch, cx), dg, wpack
+
+
+def time_k3(cs, b: int, gen) -> list:
+    from rsis_tpu_torch.ops import conv3x3 as k3
+    F = torch.nn.functional
+    rows = []
+    for i, (hh, ww, ch, cx), dg, wpack in _k3_cells(cs, b, gen):
+        kw = {"cin": 4 * ch, "cout": cx + ch}
+        want = k3.conv3x3_rowmajor_ref(dg, wpack, **kw)
+        got = k3.conv3x3_rowmajor(dg, wpack, **kw)
+        err = cs.max_err(got, want) / (
+            cs.BF16_ULP * want.float().abs().max().item())
+        if hasattr(k3, "conv3x3_pullback"):
+            def pullback():
+                return k3.conv3x3_pullback(dg, wpack, cx=cx, ch=ch)
+        else:   # the stacked conv, the slice and the pad it replaced
+            def pullback():
+                out = k3.conv3x3_rowmajor(dg, wpack, **kw)
+                return (F.pad(out[:, :, :cx], (1, 1, 0, 0, 1, 1)) if cx
+                        else None, out[:, :, cx:].contiguous())
+        dg_nchw = dg.permute(0, 2, 1, 3).contiguous()
+        w_conv = wpack.reshape(cx + ch, 3, 3, 4 * ch).permute(
+            0, 3, 1, 2).contiguous()
+        ms = cs.graph_ms(lambda: k3.conv3x3_rowmajor(dg, wpack, **kw),
+                         iters=20)
+        pms = cs.graph_ms(pullback, iters=20)
+        lms = cs.graph_ms(lambda: F.conv2d(dg_nchw, w_conv, padding=1),
+                          iters=20)
+        bms, by = cs.bound_ms(cs.nbytes(dg, wpack) + b * hh * (cx + ch)
+                              * ww * 2,
+                              2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww,
+                              torch.bfloat16)
+        rows.append({"cell": i, "geom": [hh, ww, ch, cx], "batch": b,
+                     "ms": ms, "pullback_ms": pms, "library_ms": lms,
+                     "bound_ms": bms, "bound_by": by, "err_ulps": err})
+        print(f"K3 cell{i} ({hh}, {ww}, {ch}, {cx}) B={b}: {ms:.4f} ms "
+              f"(pullback {pms:.4f}; F.conv2d {lms:.4f}, bound {bms:.4f} by "
+              f"{by}; error {err:.3f} bf16 ulps of the max)", flush=True)
+    print(f"K3 B={b}: {sum(r['ms'] for r in rows):.4f} ms a decode step "
+          f"(pullback {sum(r['pullback_ms'] for r in rows):.4f}; F.conv2d "
+          f"{sum(r['library_ms'] for r in rows):.4f}, bound "
+          f"{sum(r['bound_ms'] for r in rows):.4f})", flush=True)
+    return rows
+
+
+def _k3_plans(b, h, w, cin, cout):
+    """Every tensor-core plan of K3 for one cell that the kernel takes and
+    whose shared memory fits: warp tiles, warps, channel tiles of Cout or
+    Cout / 2, unit shapes, chunks, rings, and parts where the units leave
+    SMs idle (up to one wave), else one group of units an SM."""
+    import itertools
+    from rsis_tpu_torch.ops import conv3x3 as k3
+    n8 = cout // 8
+    w16 = -(-w // 16) * 16
+    for wm, wn, wpm, wpn, cc, st in itertools.product(
+            k3.WARP_M_TILES, k3.WARP_N_TILES, (1, 2, 4, 8), (1, 2, 4, 8),
+            k3.CHUNK_CHANNELS, (2, 3)):
+        if (not 4 <= wpm * wpn <= 8 or n8 % (wn * wpn) or cin % cc
+                or n8 // (wn * wpn) > 2):
+            continue
+        px = 16 * wm * wpm
+        tw = 16
+        while tw <= min(px, w16):
+            rows = px // tw
+            tw_, tw = tw, 2 * tw
+            if rows > 2 * h:
+                continue
+            plan = k3.Conv3x3Plan(True, wm, wn, wpm, wpn, rows, tw_, cc, st)
+            units = plan.units(b, h, w)
+            nt = n8 // (wn * wpn)
+            nck = cin // cc
+            splits = [1]
+            if units * nt < k3.SM_COUNT:
+                splits += [d for d in range(2, nck + 1) if nck % d == 0
+                           and units * nt * d <= k3.SM_COUNT]
+            for sp in splits:
+                plan = dataclasses.replace(
+                    plan, splits=sp,
+                    groups=units if sp > 1 else min(units, k3.SM_COUNT))
+                if plan.smem_bytes(cin) <= k3.SMEM_LIMIT:
+                    yield plan
+
+
+def sweep_k3(cs, b: int, gen, top: int = 5) -> dict:
+    """Every tensor-core plan of K3 at the train step's five cells, timed
+    like time_k3 and checked against the plain version; returns each
+    cell's fastest plans beside the one conv3x3_plan chooses."""
+    from rsis_tpu_torch.ops import conv3x3 as k3
+    chosen = k3.conv3x3_plan
+    out = {}
+    for i, (hh, ww, ch, cx), dg, wpack in _k3_cells(cs, b, gen):
+        kw = {"cin": 4 * ch, "cout": cx + ch}
+        want = k3.conv3x3_rowmajor_ref(dg, wpack, **kw)
+        tol = cs.BF16_ULP * want.float().abs().max().item()
+        rows = []
+        for plan in _k3_plans(b, hh, ww, 4 * ch, cx + ch):
+            k3.conv3x3_plan = lambda *a, plan=plan: plan
+            try:
+                err = cs.max_err(k3.conv3x3_rowmajor(dg, wpack, **kw), want)
+                ms = cs.graph_ms(lambda: k3.conv3x3_rowmajor(dg, wpack,
+                                                             **kw), iters=10)
+            finally:
+                k3.conv3x3_plan = chosen
+            if err > tol:
+                raise SystemExit(f"K3 cell{i} {plan}: error {err} over "
+                                 f"{tol}")
+            rows.append((ms, dataclasses.astuple(plan)))
+        rows.sort()
+        mine = dataclasses.astuple(chosen(b, hh, ww, 4 * ch, cx + ch,
+                                          torch.bfloat16))
+        mine_ms = [ms for ms, p in rows if p == mine]
+        out[i] = {"chosen": mine, "chosen_ms": mine_ms[0] if mine_ms
+                  else None, "best": rows[:top], "plans": len(rows)}
+        print(f"K3 sweep cell{i} B={b}: {len(rows)} plans; chosen {mine} "
+              f"{out[i]['chosen_ms']} ms; fastest "
+              + "; ".join(f"{p} {ms:.4f}" for ms, p in rows[:top]),
+              flush=True)
+    return out
+
+
 def time_step(cs, args) -> dict:
     import numpy as np
     from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
@@ -195,18 +341,27 @@ def time_step(cs, args) -> dict:
         busy = sum(ms for _, ms in kernels.values())
         # K5's kernels: dwt_* and, in a tree before the dwt_ prefix on
         # its second pass, the anonymous namespace's reduce_kernel
-        k5 = {k: v for k, v in kernels.items()
-              if "dwt_" in k or "namespace)::reduce_kernel" in k}
+        groups = {
+            "k5": {k: v for k, v in kernels.items()
+                   if "dwt_" in k or "namespace)::reduce_kernel" in k},
+            "k3": {k: v for k, v in kernels.items() if "conv_mma_kernel" in k
+                   or "conv_reduce_kernel" in k or "conv_fma_kernel" in k},
+            "direct_copy": {k: v for k, v in kernels.items()
+                            if "direct_copy" in k}}
         out["profile"] = {"wall_ms": wall_ms, "busy_ms": busy,
-                          "idle_share": 1 - busy / wall_ms,
-                          "k5": {k: list(v) for k, v in k5.items()}}
-        out["k5_device_ms"] = sum(ms for _, ms in k5.values())
-        out["k5_share"] = out["k5_device_ms"] / busy
+                          "idle_share": 1 - busy / wall_ms}
         print(f"profiled step: device busy {busy:.3f} ms of {wall_ms:.3f} "
-              f"ms wall (idle share {1 - busy / wall_ms:.3f}); K5 "
-              f"{out['k5_device_ms']:.3f} ms ({out['k5_share']:.3f}) in "
-              + ", ".join(f"{_short(k)} x{n} {ms:.3f}"
-                          for k, (n, ms) in k5.items()), flush=True)
+              f"ms wall (idle share {1 - busy / wall_ms:.3f})", flush=True)
+        for name, group in groups.items():
+            out["profile"][name] = {k: list(v) for k, v in group.items()}
+            out[f"{name}_device_ms"] = sum(ms for _, ms in group.values())
+            out[f"{name}_calls"] = sum(n for n, _ in group.values())
+            out[f"{name}_share"] = out[f"{name}_device_ms"] / busy
+            print(f"  {name}: {out[f'{name}_device_ms']:.3f} ms "
+                  f"({out[f'{name}_share']:.3f}), {out[f'{name}_calls']} "
+                  f"calls, in " + ", ".join(
+                      f"{_short(k)} x{n} {ms:.3f}"
+                      for k, (n, ms) in group.items()), flush=True)
     return out
 
 
@@ -216,6 +371,10 @@ def main() -> int:
     ap.add_argument("--k5-batch", type=int, nargs="+", default=[32, 8])
     ap.add_argument("--sweep", action="store_true",
                     help="time every tensor-core plan of K5 per cell at "
+                    "each --k5-batch")
+    ap.add_argument("--k3", action="store_true")
+    ap.add_argument("--k3-sweep", action="store_true",
+                    help="time every tensor-core plan of K3 per cell at "
                     "each --k5-batch")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
@@ -240,6 +399,11 @@ def main() -> int:
         result["k5"] = {b: time_k5(cs, b, gen) for b in args.k5_batch}
     if args.sweep:
         result["sweep"] = {b: sweep_k5(cs, b, gen) for b in args.k5_batch}
+    if args.k3:
+        result["k3"] = {b: time_k3(cs, b, gen) for b in args.k5_batch}
+    if args.k3_sweep:
+        result["k3_sweep"] = {b: sweep_k3(cs, b, gen)
+                              for b in args.k5_batch}
     if args.step:
         result["step"] = time_step(cs, args)
     line = json.dumps(result)

@@ -11,8 +11,10 @@ Phases, each fatal on failure:
      the forward kernels K1 and K2 at the inference geometry, the
      ConvLSTM step K8 at the mul decode's five cells and an odd H, the
      backward kernels K4, K5 and K3 at the train step's five cells (K5
-     also at edge shapes of its launch plan, and twice on the same inputs
-     with bit-identical results), the LAP matcher K6 on random and
+     and K3 also at edge shapes of their launch plans, and twice on the
+     same inputs with bit-identical results; K3 also at B = 8 and 32, its
+     pullback's dx_pad and dh_prev equal to its stacked output's slice
+     and pad bit for bit), the LAP matcher K6 on random and
      tie-heavy costs, the cell's whole backward
      (K4 + K5 + K3) against autograd through the plain cell, and the
      augmentation warp K7 at the train geometry (bit-identical: random
@@ -102,6 +104,15 @@ STEP_LOSS_BF16_REL = 1e-3          # bf16 train step's loss vs plain
 K5_EDGE_GEOMS = [((6, 24, 8, 0), 1), ((10, 40, 8, 8), 2),
                  ((11, 48, 16, 8), 1), ((6, 24, 16, 16), 1),
                  ((9, 40, 32, 16), 2)]
+# K3's edge shapes ((H, W, C, Cx), B; Cin = 4C, Cout = Cx + C): each warp
+# tile, split, ring depth and weight staging of its plan, H and W off the
+# unit, W below one unit, B=1, Cx=0, C=8 (Cout 8 and 24), several output
+# channel tiles, one across the dx / dh border
+K3_EDGE_GEOMS = [((6, 24, 8, 0), 1), ((10, 40, 8, 16), 2),
+                 ((17, 8, 16, 32), 1), ((17, 136, 32, 32), 3),
+                 ((9, 136, 8, 32), 3), ((3, 8, 32, 8), 1),
+                 ((9, 24, 16, 16), 1), ((17, 8, 8, 8), 1),
+                 ((17, 136, 32, 40), 3)]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
@@ -302,42 +313,49 @@ def tol_for(dtype, want, fp32_tol=FP32_TOL) -> float:
     return BF16_ULP * want.float().abs().max().item()
 
 
-def check_backward_kernels(cell_geoms, b, gen) -> dict:
+def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
     """K4, K5 and K3 against their plain versions at the train step's
-    shapes, fp32 and bf16. Returns the largest bf16 error of each."""
+    shapes, fp32 and bf16 (K3 also at the five cells at k3_batches, whose
+    launch plans differ). Returns the largest bf16 error of each."""
     from rsis_tpu_torch.ops import fused_cell_vjp as fcv
-    from rsis_tpu_torch.ops.conv3x3 import (conv3x3_rowmajor,
-                                            conv3x3_rowmajor_ref)
     errs = {"k3": 0.0, "k4": 0.0, "k5": 0.0}
-    # the five cells, then widths that are not multiples of 8 (FMA loops)
-    geoms = [(g, b) for g in cell_geoms] + [((32, 64, 4, 12), 2)]
+    # the five cells, then widths that are not multiples of 8 (FMA loops),
+    # then K3 alone at the other batches
+    geoms = [(g, b, True) for g in cell_geoms] + [((32, 64, 4, 12), 2, True)]
+    geoms += [(g, bb, False) for bb in k3_batches if bb != b
+              for g in cell_geoms]
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for geom, bb in geoms:
+        for geom, bb, all_three in geoms:
             hh, ww, ch, cx = geom
             ops, (dh, dc) = bwd_inputs(geom, bb, dtype, gen)
             kw = {"cx": cx, "ch": ch}
-            got = fcv.cell_backward_dgates(*ops, dh, dc, **kw)
             want = fcv.cell_backward_dgates_ref(*ops, dh, dc, **kw)
-            torch.cuda.synchronize()
-            for nm, g_, w_ in zip(("dg", "dc_prev"), got, want):
-                err = max_err(g_, w_)
-                check(f"K4 {geom} B={bb} {tag} {nm}", err, tol_for(dtype, w_))
-                if dtype == torch.bfloat16:
-                    errs["k4"] = max(errs["k4"], err)
             dg = want[0]
-            errs["k5"] = max(errs["k5"], check_k5(ops[0], ops[1], dg, geom,
-                                                  bb, dtype))
+            if all_three:
+                got = fcv.cell_backward_dgates(*ops, dh, dc, **kw)
+                torch.cuda.synchronize()
+                for nm, g_, w_ in zip(("dg", "dc_prev"), got, want):
+                    err = max_err(g_, w_)
+                    check(f"K4 {geom} B={bb} {tag} {nm}", err,
+                          tol_for(dtype, w_))
+                    if dtype == torch.bfloat16:
+                        errs["k4"] = max(errs["k4"], err)
+                errs["k5"] = max(errs["k5"], check_k5(
+                    ops[0], ops[1], dg, geom, bb, dtype))
             wpack = fcv.conv_transpose_weights(ops[4], cx, ch,
                                                "xh" if cx else "h")
-            ckw = {"cin": 4 * ch, "cout": cx + ch}
-            got = conv3x3_rowmajor(dg, wpack, **ckw)
-            want = conv3x3_rowmajor_ref(dg, wpack, **ckw)
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            check(f"K3 {geom} B={bb} {tag}", err, tol_for(dtype, want))
-            if dtype == torch.bfloat16:
-                errs["k3"] = max(errs["k3"], err)
+            errs["k3"] = max(errs["k3"], check_k3(dg, wpack, geom, bb,
+                                                  dtype))
+        # K3 at the edges of its plan (K3_EDGE_GEOMS)
+        for geom, bb in K3_EDGE_GEOMS:
+            hh, ww, ch, cx = geom
+            dg = torch.randn(bb, hh, 4 * ch, ww, generator=gen,
+                             device="cuda").to(dtype)
+            wpack = (torch.randn(cx + ch, 36 * ch, generator=gen,
+                                 device="cuda") / (36 * ch) ** 0.5).to(dtype)
+            errs["k3"] = max(errs["k3"], check_k3(dg, wpack, geom, bb,
+                                                  dtype))
         # K5 at the edges of its plan: H and W not multiples of the unit's
         # rows and columns, W below one unit, B=1, Cx=0 and the narrowest
         # widths of the tensor-core loop, each of its four warp tiles
@@ -381,6 +399,42 @@ def check_k5(h_prev, x_pad, dg, geom, b, dtype) -> float:
     check(name, err, tol_for(dtype, want, FP32_TOL * scale))
     if not torch.equal(got, again):
         raise SystemExit(f"{name}: two launches on the same inputs differ")
+    return err if dtype == torch.bfloat16 else 0.0
+
+
+def check_k3(dg, wpack, geom, b, dtype) -> float:
+    """K3 against its plain version (fp32: 1e-4; bf16: one ulp of the
+    output's max), launched twice on the same inputs with bit-identical
+    results, and its pullback outputs (dx_pad with a zero ring, dh_prev)
+    equal to the stacked output's slice and pad bit for bit. Returns the
+    bf16 error (0 for fp32)."""
+    from rsis_tpu_torch.ops import conv3x3 as k3
+    hh, ww, ch, cx = geom
+    kw = {"cin": 4 * ch, "cout": cx + ch}
+    got = k3.conv3x3_rowmajor(dg, wpack, **kw)
+    again = k3.conv3x3_rowmajor(dg, wpack, **kw)
+    dx_pad, dh_prev = k3.conv3x3_pullback(dg, wpack, cx=cx, ch=ch)
+    want = k3.conv3x3_rowmajor_ref(dg, wpack, **kw)
+    torch.cuda.synchronize()
+    plan = k3.conv3x3_plan(b, hh, ww, 4 * ch, cx + ch, dtype)
+    tag = "fp32" if dtype == torch.float32 else "bf16"
+    name = f"K3 {geom} B={b} {tag} " + (
+        f"(mma, {16 * plan.wm}x{8 * plan.wn} warp tile, {plan.rows}x"
+        f"{plan.tw} unit, {plan.cc}-channel chunks, {plan.splits} parts)"
+        if plan.mma else "(fma)")
+    err = max_err(got, want)
+    check(name, err, tol_for(dtype, want))
+    if not torch.equal(got, again):
+        raise SystemExit(f"{name}: two launches on the same inputs differ")
+    split_ok = torch.equal(dh_prev, got[:, :, cx:])
+    if cx:
+        ring = dx_pad.clone()
+        ring[:, 1:-1, :, 1:-1] = 0
+        split_ok = (split_ok and not ring.any().item() and torch.equal(
+            dx_pad[:, 1:-1, :, 1:-1], got[:, :, :cx]))
+    if not split_ok:
+        raise SystemExit(f"{name}: the pullback's dx_pad / dh_prev differ "
+                         f"from the stacked output's slice and pad")
     return err if dtype == torch.bfloat16 else 0.0
 
 
@@ -1481,7 +1535,8 @@ def main() -> int:
             k2_err = err
     k8_err = check_clstm(k8_geoms, b, gen)
     log(f"backward kernel checks at the train step's shapes, B={tb}:")
-    bwd_err = check_backward_kernels(train_geoms, tb, gen)
+    bwd_err = check_backward_kernels(train_geoms, tb, gen,
+                                     k3_batches=sorted({b, 8, 32}))
     lap_err = check_lap(gen)
     cell_bwd_ulps = check_cell_backward(train_geoms, tb, gen)
     log(f"  cell backward bf16: worst {cell_bwd_ulps:.3f} bf16 ulps")

@@ -1,8 +1,10 @@
 // Shared machinery of the ConvLSTM cell kernels (fused_cell.cu, the
-// forward, cell_bwd.cu, the backward, and clstm_step.cu, the NCHW step)
-// and of the plain 3x3 conv (conv3x3.cu): the halo staging, the mma.sync
-// helpers and the gate convolution's two main loops, each with the
-// epilogue and the operands' layout as template arguments.
+// forward, cell_bwd.cu, the backward, and clstm_step.cu, the NCHW step):
+// the halo staging, the mma.sync helpers and the gate convolution's two
+// main loops, each with the epilogue and the operands' layout as template
+// arguments; and the asynchronous staging helpers (cp.async, ldmatrix /
+// stmatrix on shared addresses, the Walk counters) of weight_grad.cu and
+// conv3x3.cu.
 //
 // The gate convolution, for tensors stored (B, H, C, W):
 //   gates = conv3x3_same([x_pad (Cx) || h_prev (C)], W)          (4C, fp32)
@@ -293,6 +295,113 @@ __device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&b)[2],
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
       : "=r"(b[0]), "=r"(b[1])
       : "r"(addr));
+}
+
+// ---- asynchronous staging (weight_grad.cu, conv3x3.cu) ----------------
+
+// 16 bytes to shared memory, of which the first `bytes` from src and the
+// rest zero
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&b)[4],
+                                                  const void* smem) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
+// Lanes 8i .. 8i + 7 address the destination rows of matrix i; each row
+// receives a column of the matrix that v[i] holds as ldmatrix gave it.
+__device__ __forceinline__ void stmatrix_x4_trans(void* smem,
+                                                  const unsigned (&v)[4]) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1,%2,%3,%4};\n" ::"r"(addr),
+      "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+      : "memory");
+}
+
+// A flat index i = (c * nb + b) * na + a over an (., nb, na) box, stepped
+// by a fixed stride without division (the staging loops' counters).
+struct Walk {
+  int a, b, c, da, db, dc, na, nb;
+  __device__ Walk(int i, int step, int na_, int nb_)
+      : na(na_), nb(max(nb_, 1)) {
+    a = i % na;
+    b = i / na % nb;
+    c = i / (na * nb);
+    da = step % na;
+    db = step / na % nb;
+    dc = step / (na * nb);
+  }
+  __device__ __forceinline__ void next() {
+    a += da;
+    b += db;
+    c += dc;
+    if (a >= na) {
+      a -= na;
+      ++b;
+    }
+    if (b >= nb) {
+      b -= nb;
+      ++c;
+    }
+  }
+};
+
+// ldmatrix / stmatrix on a shared-space byte address (the inner loops
+// keep their addresses in that form).
+__device__ __forceinline__ void ldsm_x4(unsigned (&a)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&a)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(a[0]), "=r"(a[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void stsm_x4_trans(unsigned addr,
+                                              const unsigned (&v)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1,%2,%3,%4};\n" ::"r"(addr),
+      "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+      : "memory");
+}
+
+__device__ __forceinline__ void stsm_x2_trans(unsigned addr,
+                                              const unsigned (&v)[2]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1,%2};\n" ::
+          "r"(addr),
+      "r"(v[0]), "r"(v[1])
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
 // Shared-memory tap halo: [R + 2 rows][tw + 2 cols][stride], channel-minor

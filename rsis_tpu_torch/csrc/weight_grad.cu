@@ -58,9 +58,15 @@
 
 namespace {
 
+using rsis::cp_async16;
+using rsis::cp_async_commit;
+using rsis::cp_async_wait;
 using rsis::from_f;
 using rsis::kThreads;
+using rsis::ldmatrix_x4_trans;
+using rsis::stmatrix_x4_trans;
 using rsis::to_f;
+using rsis::Walk;
 using bf16 = __nv_bfloat16;
 
 constexpr size_t kSmemLimit = 227 * 1024;
@@ -69,74 +75,6 @@ constexpr size_t kSmemLimit = 227 * 1024;
 __device__ __forceinline__ int packed_col(int tap, int ch, int C, int Cx) {
   return ch < Cx ? tap * Cx + ch : 9 * Cx + tap * C + (ch - Cx);
 }
-
-// 16 bytes to shared memory, of which the first `bytes` from src and the
-// rest zero
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&b)[4],
-                                                  const void* smem) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// Lanes 8i .. 8i + 7 address the destination rows of matrix i; each row
-// receives a column of the matrix that v[i] holds as ldmatrix gave it.
-__device__ __forceinline__ void stmatrix_x4_trans(void* smem,
-                                                  const unsigned (&v)[4]) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
-      "{%1,%2,%3,%4};\n" ::"r"(addr),
-      "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
-      : "memory");
-}
-
-// A flat index i = (c * nb + b) * na + a over an (., nb, na) box, stepped
-// by a fixed stride without division (the staging loops' counters).
-struct Walk {
-  int a, b, c, da, db, dc, na, nb;
-  __device__ Walk(int i, int step, int na_, int nb_)
-      : na(na_), nb(max(nb_, 1)) {
-    a = i % na;
-    b = i / na % nb;
-    c = i / (na * nb);
-    da = step % na;
-    db = step / na % nb;
-    dc = step / (na * nb);
-  }
-  __device__ __forceinline__ void next() {
-    a += da;
-    b += db;
-    c += dc;
-    if (a >= na) {
-      a -= na;
-      ++b;
-    }
-    if (b >= nb) {
-      b -= nb;
-      ++c;
-    }
-  }
-};
 
 // The host's plan of a tensor-core launch: block tile Mb = 16 WA wm gate
 // rows x Cb = 8 WC wc channels (wm x wc warps), units of `rows` x `tw`

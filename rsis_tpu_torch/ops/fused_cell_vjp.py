@@ -9,7 +9,7 @@ extra is stored per step) and runs three kernels:
 
   dg, dc_prev = cell_backward_dgates(...)       recompute the gates (K4)
   dwt         = weight_grad_rowmajor(h, x, dg)  sum_pixels dg (x) taps (K5)
-  dx, dh_prev = conv3x3_rowmajor(dg, flip(W)^T) the pullback conv (K3)
+  dx_pad, dh_prev = conv3x3_pullback(dg, flip(W)^T)  the pullback (K3)
   ds          = dg                              (S enters additively)
 
 with the identities (gate order i, f, o, g)
@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv3x3 import conv3x3_rowmajor
+from .conv3x3 import conv3x3_pullback
 from .fused_cell import _DTYPE_CODES, _check, fused_cell_rowmajor, gates_ref
 
 
@@ -353,8 +353,9 @@ def conv_transpose_weights(wt: torch.Tensor, cx: int, ch: int,
 
 def cell_bwd_core(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *, cx: int,
                   ch: int):
-    """Backward body of the cell: (dg, dc_prev, dwt, dx, dh_prev), dx the
-    unpadded up-input cotangent (B, H, Cx, W) or None when cx == 0.
+    """Backward body of the cell: (dg, dc_prev, dwt, dx_pad, dh_prev),
+    dx_pad the up-input cotangent with a zero ring (B, H+2, Cx, W+2), or
+    None when cx == 0.
 
     The ring of x_pad reaches the edge gates, but its cotangent is dropped:
     the decoder builds x_pad with a structurally zero ring (the padded
@@ -363,13 +364,11 @@ def cell_bwd_core(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *, cx: int,
     dg, dc_prev = cell_backward_dgates(h_prev, x_pad, c_prev, s_term, wt, dh,
                                        dc, cx=cx, ch=ch)
     dwt = weight_grad_rowmajor(h_prev, x_pad, dg, cx=cx, ch=ch)
-    # one conv for both pullbacks: out (B, H, Cx + C, W), x rows first
+    # one launch writes both pullbacks (x rows first): dx_pad with its
+    # zero ring and dh_prev, no slice or pad after it
     wpack = conv_transpose_weights(wt, cx, ch, "xh" if cx else "h")
-    dxh = conv3x3_rowmajor(dg, wpack, cin=4 * ch, cout=cx + ch)
-    if cx:
-        return (dg, dc_prev, dwt, dxh[:, :, :cx],
-                dxh[:, :, cx:].contiguous())
-    return dg, dc_prev, dwt, None, dxh
+    dx_pad, dh_prev = conv3x3_pullback(dg, wpack, cx=cx, ch=ch)
+    return dg, dc_prev, dwt, dx_pad, dh_prev
 
 
 class FusedCellFunction(torch.autograd.Function):
@@ -390,8 +389,7 @@ class FusedCellFunction(torch.autograd.Function):
         h_prev, x_pad, c_prev, s_term, wt = ctx.saved_tensors
         # autograd may hand over strided cotangents; the kernels take
         # contiguous ones
-        dg, dc_prev, dwt, dx, dh_prev = cell_bwd_core(
+        dg, dc_prev, dwt, dx_pad, dh_prev = cell_bwd_core(
             h_prev, x_pad, c_prev, s_term, wt, dh.contiguous(),
             dc.contiguous(), cx=ctx.cx, ch=ctx.ch)
-        dx_pad = None if dx is None else F.pad(dx, (1, 1, 0, 0, 1, 1))
         return dh_prev, dx_pad, dc_prev, dg, dwt, None, None
