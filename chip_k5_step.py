@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K5 (the weight gradient) and K3 (the pullback conv) per cell and the
-bench-geometry train step, timed on one GPU, for comparing two trees of
-the port in one call.
+"""K1 (the fused decode cell), K4 (the cell backward), K5 (the weight
+gradient), K3 (the pullback conv) and K8 (the NCHW ConvLSTM step) per cell
+and the bench-geometry train step, timed on one GPU, for comparing two
+trees of the port in one call.
 
 Runs the ``rsis_tpu_torch`` package beside it (run a copy of this script
 from the root of another tree to time that tree), with ``chip_smoke.py``'s
@@ -22,14 +23,28 @@ inputs, timers and bounds:
 - --k3-sweep: every tensor-core plan of K3 at those cells and batches
   (``conv3x3_plan`` replaced for the call), each checked against the
   plain version, the fastest beside the chosen one;
+- --k1: ``fused_cell_rowmajor`` (K1) at the forward's five cells (512x1024
+  input, hidden 128, bf16) for each --k1-batch; --k4:
+  ``cell_backward_dgates`` (K4) at the train step's five cells for each
+  --k4-batch: device ms of one launch, its bound, the plain version's ms,
+  cuDNN's gate convolution alone (``F.conv2d`` of the NCHW concat of x
+  and h_prev: a yardstick for the GEMM part, not the cell's function),
+  and the error against the plain version;
+- --cell-sweep: every tensor-core plan of K1 and K4 at those cells and
+  batches (``cell_plan`` replaced for the call), each checked against the
+  plain version, the fastest beside the chosen one;
+- --k8: ``clstm_step`` (K8) at the mul decode's five cells (512x1024) for
+  each --k1-batch: device ms, plain ms and bound;
 - --step: the train step at --batch, --steps (resnet101, device
   augmentation on, bf16): a warm-up step, then --iters steps each timed
   by the host clock around a synchronised step; with --profile, device
-  time by kernel over one more step: K5's and K3's kernels by name and
-  their shares, and PyTorch's copy kernels (direct_copy).
+  time by kernel over one more step: K1's, K4's, K5's and K3's kernels by
+  name and their shares, and PyTorch's copy kernels (direct_copy).
 
 Prints one JSON object as its last line (and writes it to --out).
-Usage: python3 chip_k5_step.py [--k5] [--k3] [--k5-batch 32 8] [--sweep]
+Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8] [--cell-sweep]
+                               [--k1-batch 32 4] [--k4-batch 32 8]
+                               [--k5] [--k3] [--k5-batch 32 8] [--sweep]
                                [--k3-sweep] [--step] [--batch 32]
                                [--steps 20] [--iters 5] [--profile]
                                [--seed 0] [--out FILE]
@@ -291,6 +306,168 @@ def sweep_k3(cs, b: int, gen, top: int = 5) -> dict:
     return out
 
 
+FWD_HW = (512, 1024)   # the decode bench's input
+
+
+def _cells(hw):
+    """(cell, (H, W, C, Cx)) of the decode's five cells at input hw."""
+    from rsis_tpu_torch.models.decoder import decoder_widths
+    widths = decoder_widths(128)
+    for i, ch in enumerate(widths):
+        yield i, (hw[0] // 2 ** (5 - i), hw[1] // 2 ** (5 - i), ch,
+                  widths[i - 1] if i else 0)
+
+
+def _cell_fns(kind):
+    """(kernel, plain version, backward) of K1 or K4, each taking the
+    operands of chip_smoke.bwd_inputs."""
+    from rsis_tpu_torch.ops import fused_cell as fc
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    if kind == "k1":
+        return (lambda ops, cot, kw: fc.fused_cell_rowmajor(*ops, **kw),
+                lambda ops, cot, kw: fc.fused_cell_rowmajor_ref(*ops, **kw),
+                False)
+    return (lambda ops, cot, kw: fcv.cell_backward_dgates(*ops, *cot, **kw),
+            lambda ops, cot, kw: fcv.cell_backward_dgates_ref(*ops, *cot,
+                                                              **kw),
+            True)
+
+
+def time_cell(cs, kind: str, b: int, gen) -> list:
+    """K1 (kind "k1", forward cells) or K4 ("k4", train cells) per cell."""
+    F = torch.nn.functional
+    kern, plain, _ = _cell_fns(kind)
+    hw = FWD_HW if kind == "k1" else cs.TRAIN_HW
+    rows = []
+    for i, (hh, ww, ch, cx) in _cells(hw):
+        ops, cot = cs.bwd_inputs((hh, ww, ch, cx), b, torch.bfloat16, gen)
+        kw = {"cx": cx, "ch": ch}
+        got = kern(ops, cot, kw)
+        want = plain(ops, cot, kw)
+        err = max(cs.max_err(g, w) / (cs.BF16_ULP
+                                      * w.float().abs().max().item())
+                  for g, w in zip(got, want))
+        ms = cs.graph_ms(lambda: kern(ops, cot, kw), iters=20)
+        pms = cs.graph_ms(lambda: plain(ops, cot, kw), iters=5)
+        xh = torch.cat([t.permute(0, 2, 1, 3).contiguous() for t in
+                        ([ops[1][:, 1:-1, :, 1:-1]] if cx else [])
+                        + [ops[0]]], dim=1)
+        wt = ops[4]
+        w_conv = torch.cat(
+            ([wt[:, :9 * cx].reshape(4 * ch, 3, 3, cx)] if cx else [])
+            + [wt[:, 9 * cx:].reshape(4 * ch, 3, 3, ch)], dim=3).permute(
+                0, 3, 1, 2).contiguous()
+        gms = cs.graph_ms(lambda: F.conv2d(xh, w_conv, padding=1), iters=20)
+        outs = got if isinstance(got, tuple) else (got,)
+        n_b = cs.nbytes(*ops, *(cot if kind == "k4" else ()), *outs)
+        bms, by = cs.bound_ms(n_b,
+                              2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww,
+                              torch.bfloat16)
+        rows.append({"cell": i, "geom": [hh, ww, ch, cx], "batch": b,
+                     "ms": ms, "plain_ms": pms, "gate_conv_ms": gms,
+                     "bound_ms": bms, "bound_by": by, "err_ulps": err})
+        print(f"{kind.upper()} cell{i} ({hh}, {ww}, {ch}, {cx}) B={b}: "
+              f"{ms:.4f} ms (plain {pms:.4f}; cuDNN gate conv {gms:.4f}, "
+              f"bound {bms:.4f} by {by}; error {err:.3f} bf16 ulps of the "
+              f"max)", flush=True)
+    print(f"{kind.upper()} B={b}: {sum(r['ms'] for r in rows):.4f} ms a "
+          f"decode step (plain {sum(r['plain_ms'] for r in rows):.4f}; "
+          f"cuDNN gate conv {sum(r['gate_conv_ms'] for r in rows):.4f}, "
+          f"bound {sum(r['bound_ms'] for r in rows):.4f})", flush=True)
+    return rows
+
+
+def _cell_plans(b, h, w, ch, cx, backward):
+    """Every tensor-core plan of K1 or K4 for one cell that the kernel
+    takes and whose shared memory fits: warp tiles, 4-8 warps, channel
+    tiles, the unit shape of _unit_shape and whole rows (tw up to W),
+    chunks, rings, and the most
+    parts where the units leave SMs idle (else one wave of groups, at one
+    block an SM and, where per_sm allows, two)."""
+    import itertools
+    from rsis_tpu_torch.ops import fused_cell as fc
+    ccs = [c for c in fc.CELL_CHUNKS if ch % c == 0 and cx % c == 0]
+    for wm, wj, wpm, wpn, cc, st in itertools.product(
+            fc.CELL_WARP_M, fc.CELL_WARP_J, (1, 2, 4, 8), (1, 2, 4, 8), ccs,
+            (2, 3)):
+        ct = 8 * wj * wpn
+        if (not 4 <= wpm * wpn <= 8 or ch % ct or wm * wj > 8
+                or (cc == 8 and wj > 2)):
+            continue
+        px = 16 * wm * wpm
+        for tw in sorted({fc._unit_shape(px, h, w)[1],
+                          min(px, -(-w // 16) * 16)}):
+            rows = px // tw
+            if rows > 2 * h:
+                continue
+            plan = fc.CellPlan(True, wm, wj, wpm, wpn, rows, tw, cc, st)
+            units, n_ct = plan.units(b, h, w), ch // ct
+            if plan.smem_bytes(ch, cx, backward) > fc.SMEM_LIMIT:
+                continue
+            if units * n_ct < fc.SM_COUNT:
+                yield dataclasses.replace(
+                    plan, groups=units, splits=fc._divisor_at_most(
+                        plan.chunks(ch, cx), fc.SM_COUNT // (units * n_ct)))
+                continue
+            for per_sm in (1, 2) if plan.two_per_sm(ch, cx, backward) \
+                    else (1,):
+                yield dataclasses.replace(plan, per_sm=per_sm, groups=min(
+                    units, max(1, per_sm * fc.SM_COUNT // n_ct)))
+
+
+def sweep_cell(cs, kind: str, b: int, gen, top: int = 5) -> dict:
+    """Every tensor-core plan of K1 or K4 at its five cells, timed like
+    time_cell and checked against the plain version (one bf16 ulp of each
+    output's max); returns each cell's fastest plans beside the one
+    cell_plan chooses."""
+    from rsis_tpu_torch.ops import fused_cell as fc
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    chosen = fc.cell_plan
+    kern, plain, backward = _cell_fns(kind)
+    hw = FWD_HW if kind == "k1" else cs.TRAIN_HW
+    out = {}
+    for i, (hh, ww, ch, cx) in _cells(hw):
+        ops, cot = cs.bwd_inputs((hh, ww, ch, cx), b, torch.bfloat16, gen)
+        kw = {"cx": cx, "ch": ch}
+        want = plain(ops, cot, kw)
+        rows = []
+        for plan in _cell_plans(b, hh, ww, ch, cx, backward):
+            # K1's wrapper reads fused_cell.cell_plan, K4's its own import
+            fc.cell_plan = fcv.cell_plan = lambda *a, plan=plan, **k: plan
+            try:
+                got = kern(ops, cot, kw)
+                ms = cs.graph_ms(lambda: kern(ops, cot, kw), iters=10)
+            finally:
+                fc.cell_plan = fcv.cell_plan = chosen
+            for g, w in zip(got, want):
+                err = cs.max_err(g, w)
+                tol = cs.BF16_ULP * w.float().abs().max().item()
+                if err > tol:
+                    raise SystemExit(f"{kind.upper()} cell{i} {plan}: "
+                                     f"error {err} over {tol}")
+            rows.append((ms, dataclasses.astuple(plan)))
+        rows.sort()
+        mine = dataclasses.astuple(chosen(b, hh, ww, ch, cx, torch.bfloat16,
+                                          backward=backward))
+        mine_ms = [ms for ms, p in rows if p == mine]
+        out[i] = {"chosen": mine, "chosen_ms": mine_ms[0] if mine_ms
+                  else None, "best": rows[:top], "plans": len(rows)}
+        print(f"{kind.upper()} sweep cell{i} B={b}: {len(rows)} plans; "
+              f"chosen {mine} {out[i]['chosen_ms']} ms; fastest "
+              + "; ".join(f"{p} {ms:.4f}" for ms, p in rows[:top]),
+              flush=True)
+    return out
+
+
+def time_k8(cs, b: int, gen) -> dict:
+    """K8 at the mul decode's five cells (chip_smoke.time_clstm)."""
+    from rsis_tpu_torch.models.decoder import decoder_widths
+    out = cs.time_clstm(cs.mul_geoms(*FWD_HW, decoder_widths(128)), b, gen)
+    print(f"K8 B={b}: {out['ms']:.4f} ms a decode step (plain "
+          f"{out['plain_ms']:.4f}, bound {out['bound_ms']:.4f})", flush=True)
+    return out
+
+
 def time_step(cs, args) -> dict:
     import numpy as np
     from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
@@ -340,8 +517,11 @@ def time_step(cs, args) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA}
         busy = sum(ms for _, ms in kernels.values())
         # K5's kernels: dwt_* and, in a tree before the dwt_ prefix on
-        # its second pass, the anonymous namespace's reduce_kernel
+        # its second pass, the anonymous namespace's reduce_kernel; K1's
+        # and K4's by their epilogues' names (either main loop)
         groups = {
+            "k1": {k: v for k, v in kernels.items() if "LstmForward" in k},
+            "k4": {k: v for k, v in kernels.items() if "LstmBackward" in k},
             "k5": {k: v for k, v in kernels.items()
                    if "dwt_" in k or "namespace)::reduce_kernel" in k},
             "k3": {k: v for k, v in kernels.items() if "conv_mma_kernel" in k
@@ -367,6 +547,14 @@ def time_step(cs, args) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k1", action="store_true")
+    ap.add_argument("--k4", action="store_true")
+    ap.add_argument("--k8", action="store_true")
+    ap.add_argument("--cell-sweep", action="store_true",
+                    help="time every tensor-core plan of K1 (at each "
+                    "--k1-batch) and K4 (at each --k4-batch) per cell")
+    ap.add_argument("--k1-batch", type=int, nargs="+", default=[32, 4])
+    ap.add_argument("--k4-batch", type=int, nargs="+", default=[32, 8])
     ap.add_argument("--k5", action="store_true")
     ap.add_argument("--k5-batch", type=int, nargs="+", default=[32, 8])
     ap.add_argument("--sweep", action="store_true",
@@ -395,6 +583,16 @@ def main() -> int:
     result = {"card": cs.card_line(), "tree": here}
     print(f"card: {result['card']}; tree {here}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.k1:
+        result["k1"] = {b: time_cell(cs, "k1", b, gen) for b in args.k1_batch}
+    if args.k4:
+        result["k4"] = {b: time_cell(cs, "k4", b, gen) for b in args.k4_batch}
+    if args.cell_sweep:
+        result["cell_sweep"] = {
+            "k1": {b: sweep_cell(cs, "k1", b, gen) for b in args.k1_batch},
+            "k4": {b: sweep_cell(cs, "k4", b, gen) for b in args.k4_batch}}
+    if args.k8:
+        result["k8"] = {b: time_k8(cs, b, gen) for b in args.k1_batch}
     if args.k5:
         result["k5"] = {b: time_k5(cs, b, gen) for b in args.k5_batch}
     if args.sweep:

@@ -4,17 +4,18 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the build of all eight kernels in ``rsis_tpu_torch/csrc`` (one nvcc
-     per source, all started together) and of the host RLE library
+     per source, all started together; each entry function's registers
+     and spills) and of the host RLE library
      (``rsis_tpu_torch/kernels/rle``, g++);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, in float32 (TF32 off) and bfloat16:
      the forward kernels K1 and K2 at the inference geometry, the
      ConvLSTM step K8 at the mul decode's five cells and an odd H, the
-     backward kernels K4, K5 and K3 at the train step's five cells (K5
-     and K3 also at edge shapes of their launch plans, and twice on the
-     same inputs with bit-identical results; K3 also at B = 8 and 32, its
-     pullback's dx_pad and dh_prev equal to its stacked output's slice
-     and pad bit for bit), the LAP matcher K6 on random and
+     backward kernels K4, K5 and K3 at the train step's five cells (K1,
+     K4, K5 and K3 also at edge shapes of their launch plans, and twice
+     on the same inputs with bit-identical results; K3 also at B = 8 and
+     32, its pullback's dx_pad and dh_prev equal to its stacked output's
+     slice and pad bit for bit), the LAP matcher K6 on random and
      tie-heavy costs, the cell's whole backward
      (K4 + K5 + K3) against autograd through the plain cell, and the
      augmentation warp K7 at the train geometry (bit-identical: random
@@ -113,6 +114,15 @@ K3_EDGE_GEOMS = [((6, 24, 8, 0), 1), ((10, 40, 8, 16), 2),
                  ((9, 136, 8, 32), 3), ((3, 8, 32, 8), 1),
                  ((9, 24, 16, 16), 1), ((17, 8, 8, 8), 1),
                  ((17, 136, 32, 40), 3)]
+# K1's and K4's edge shapes ((H, W, C, Cx), B): between their two plans
+# (the forward's five epilogue planes, the backward's seven) each warp
+# tile, ring depth, chunk width (C = 8: the narrow chunk), channel tiling
+# and split of cell_plan, the weight chunk resident and streamed, H and W
+# off the unit, W below one unit, B=1, Cx=0
+K1_EDGE_GEOMS = [((1, 8, 8, 0), 1), ((9, 40, 8, 16), 2),
+                 ((3, 24, 32, 8), 1), ((1, 8, 64, 0), 1),
+                 ((17, 136, 64, 0), 2), ((17, 136, 32, 0), 3),
+                 ((2, 136, 64, 8), 1), ((17, 40, 32, 8), 3)]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
@@ -130,6 +140,16 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def log_ptxas(name: str, text: str) -> None:
+    """nvcc's -Xptxas=-v report of one library: each entry function's
+    registers and spills, under the function's (mangled) name."""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            log(f"  {name}: {line.split('for', 1)[1].strip()[:120]}")
+        elif "registers" in line or "spill" in line:
+            log(f"  {name}:   {line.strip()}")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -313,6 +333,54 @@ def tol_for(dtype, want, fp32_tol=FP32_TOL) -> float:
     return BF16_ULP * want.float().abs().max().item()
 
 
+def cell_plan_tag(geom, b, dtype, backward=False) -> str:
+    """K1's or K4's launch plan at one geometry, for the check lines."""
+    from rsis_tpu_torch.ops.fused_cell import cell_plan
+    hh, ww, ch, cx = geom
+    p = cell_plan(b, hh, ww, ch, cx, dtype, backward=backward)
+    if not p.mma:
+        return "(fma)"
+    return (f"(mma, {16 * p.wm}x{8 * p.wj}x4 warp tile, {p.rows}x{p.tw} "
+            f"unit, {p.block_c}-channel tile, {p.cc}-channel chunks, "
+            f"{p.stages} stages, {p.splits} parts)")
+
+
+def check_cell_kernels(geom, b, dtype, gen, label="") -> dict:
+    """K1 and K4 against their plain versions at one geometry (fp32: 1e-4;
+    bf16: one ulp of each output's max), each launched twice on the same
+    inputs with bit-identical results. Returns the bf16 errors of each (0
+    for fp32)."""
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    from rsis_tpu_torch.ops.fused_cell import (fused_cell_rowmajor,
+                                               fused_cell_rowmajor_ref)
+    hh, ww, ch, cx = geom
+    kw = {"cx": cx, "ch": ch}
+    tag = "fp32" if dtype == torch.float32 else "bf16"
+    ops, (dh, dc) = bwd_inputs(geom, b, dtype, gen)
+    errs = {"k1": 0.0, "k4": 0.0}
+    for key, name, fn, ref, args, backward in (
+            ("k1", "K1", fused_cell_rowmajor, fused_cell_rowmajor_ref, ops,
+             False),
+            ("k4", "K4", fcv.cell_backward_dgates,
+             fcv.cell_backward_dgates_ref, (*ops, dh, dc), True)):
+        got = fn(*args, **kw)
+        again = fn(*args, **kw)
+        want = ref(*args, **kw)
+        torch.cuda.synchronize()
+        full = (f"{name} {label}{geom} B={b} {tag} "
+                + cell_plan_tag(geom, b, dtype, backward))
+        nms = ("h", "c") if key == "k1" else ("dg", "dc_prev")
+        for nm, g_, a_, w_ in zip(nms, got, again, want):
+            err = max_err(g_, w_)
+            check(f"{full} {nm}", err, tol_for(dtype, w_))
+            if not torch.equal(g_, a_):
+                raise SystemExit(f"{full} {nm}: two launches on the same "
+                                 f"inputs differ")
+            if dtype == torch.bfloat16:
+                errs[key] = max(errs[key], err)
+    return errs
+
+
 def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
     """K4, K5 and K3 against their plain versions at the train step's
     shapes, fp32 and bf16 (K3 also at the five cells at k3_batches, whose
@@ -334,11 +402,17 @@ def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
             dg = want[0]
             if all_three:
                 got = fcv.cell_backward_dgates(*ops, dh, dc, **kw)
+                again = fcv.cell_backward_dgates(*ops, dh, dc, **kw)
                 torch.cuda.synchronize()
-                for nm, g_, w_ in zip(("dg", "dc_prev"), got, want):
+                name = f"K4 {geom} B={bb} {tag} " + cell_plan_tag(
+                    geom, bb, dtype, backward=True)
+                for nm, g_, a_, w_ in zip(("dg", "dc_prev"), got, again,
+                                          want):
                     err = max_err(g_, w_)
-                    check(f"K4 {geom} B={bb} {tag} {nm}", err,
-                          tol_for(dtype, w_))
+                    check(f"{name} {nm}", err, tol_for(dtype, w_))
+                    if not torch.equal(g_, a_):
+                        raise SystemExit(f"{name} {nm}: two launches on "
+                                         f"the same inputs differ")
                     if dtype == torch.bfloat16:
                         errs["k4"] = max(errs["k4"], err)
                 errs["k5"] = max(errs["k5"], check_k5(
@@ -1473,9 +1547,7 @@ def main() -> int:
     log(f"build: RLE library {rle_binding.build().name} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, info in sorted(built.items()):
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        log_ptxas(name, info["log"])
 
     b = args.batch
     hidden, height, width = 128, 512, 1024
@@ -1499,21 +1571,33 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions ----------------------
     log(f"kernel checks at the main path's shapes, B={b}:")
-    k1_err = k2_err = 0.0
+    k1_err = k2_err = k4_edge_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         for i, geom in enumerate(cell_geoms):
             ops = cell_inputs(geom, b, dtype, gen)
             h_k, c_k = fused_cell_rowmajor(*ops, cx=geom[3], ch=geom[2])
+            h_a, c_a = fused_cell_rowmajor(*ops, cx=geom[3], ch=geom[2])
             h_r, c_r = fused_cell_rowmajor_ref(*ops, cx=geom[3], ch=geom[2])
             torch.cuda.synchronize()
-            for nm, got, want in (("h", h_k, h_r), ("c", c_k, c_r)):
+            name = f"K1 cell{i} {geom} {tag} " + cell_plan_tag(geom, b,
+                                                               dtype)
+            for nm, got, again, want in (("h", h_k, h_a, h_r),
+                                         ("c", c_k, c_a, c_r)):
                 err = max_err(got, want)
                 tol = (FP32_TOL if dtype == torch.float32 else
                        BF16_ULP * want.float().abs().max().item())
-                check(f"K1 cell{i} {geom} {tag} {nm}", err, tol)
+                check(f"{name} {nm}", err, tol)
+                if not torch.equal(got, again):
+                    raise SystemExit(f"{name} {nm}: two launches on the "
+                                     f"same inputs differ")
                 if dtype == torch.bfloat16:
                     k1_err = max(k1_err, err)
+        # K1 and K4 at the edges of their plans (K1_EDGE_GEOMS)
+        for geom, bb in K1_EDGE_GEOMS:
+            errs = check_cell_kernels(geom, bb, dtype, gen, "edge ")
+            k1_err = max(k1_err, errs["k1"])
+            k4_edge_err = max(k4_edge_err, errs["k4"])
         # widths that are not multiples of 8 take K1's FMA loop in bf16 too
         geom = (32, 64, 4, 12)
         ops = cell_inputs(geom, 2, dtype, gen)
@@ -1537,6 +1621,7 @@ def main() -> int:
     log(f"backward kernel checks at the train step's shapes, B={tb}:")
     bwd_err = check_backward_kernels(train_geoms, tb, gen,
                                      k3_batches=sorted({b, 8, 32}))
+    bwd_err["k4"] = max(bwd_err["k4"], k4_edge_err)
     lap_err = check_lap(gen)
     cell_bwd_ulps = check_cell_backward(train_geoms, tb, gen)
     log(f"  cell backward bf16: worst {cell_bwd_ulps:.3f} bf16 ulps")

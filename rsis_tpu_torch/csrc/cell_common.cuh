@@ -1,10 +1,9 @@
 // Shared machinery of the ConvLSTM cell kernels (fused_cell.cu, the
 // forward, cell_bwd.cu, the backward, and clstm_step.cu, the NCHW step):
-// the halo staging, the mma.sync helpers and the gate convolution's two
-// main loops, each with the epilogue and the operands' layout as template
-// arguments; and the asynchronous staging helpers (cp.async, ldmatrix /
-// stmatrix on shared addresses, the Walk counters) of weight_grad.cu and
-// conv3x3.cu.
+// the halo staging, the mma.sync helpers and the gate convolution's main
+// loops, each with the epilogue as a template argument; and the
+// asynchronous staging helpers (cp.async, ldmatrix / stmatrix on shared
+// addresses, the Walk counters) of weight_grad.cu and conv3x3.cu.
 //
 // The gate convolution, for tensors stored (B, H, C, W):
 //   gates = conv3x3_same([x_pad (Cx) || h_prev (C)], W)          (4C, fp32)
@@ -18,23 +17,33 @@
 // cotangents (backward). Both kernels therefore compute the same gate sums
 // in the same order.
 //
-// Two main loops:
-//   - bf16 with C and Cx multiples of 8 (every cell at hidden 128): an
-//     implicit GEMM on the tensor cores, mma.sync m16n8k16 with fp32
-//     accumulation, A by ldmatrix from the channel-minor halo and B pairs
-//     from the packed weight, prefetched one k-step ahead;
+// Three main loops:
+//   - the staged loop (cell_staged_kernel; K1 and K4 in bf16 with C, Cx
+//     and W multiples of 8, every cell at hidden 128): a block owns a unit
+//     of rows x tw pixels and a tile of Ct hidden channels with all four
+//     of their gates; the weight streams once per unit through shared
+//     memory in K-chunks of nine taps x cc channels of x or of h, beside
+//     the chunk's halo (16-byte cp.async copies into a ring, transposed
+//     once to [pixel][channel]); mma.sync m16n8k16 with fp32
+//     accumulators; the epilogue's operands are staged as W-contiguous
+//     rows and read in fragment order by ldmatrix.trans, and its outputs
+//     leave through shared memory in 16-byte stores. The plan comes from
+//     the host (cell_plan in ops/fused_cell.py);
+//   - the NCHW tensor-core loop (cell_mma_kernel; K8 in bf16): A by
+//     ldmatrix from a channel-minor halo staged with scalar loads, B pairs
+//     from the OHWI weight, prefetched one k-step ahead;
 //   - otherwise (fp32, small widths): fp32 FMA on CUDA cores, each thread
 //     owning G channels x 4 gates x P pixels.
-// Both keep the products exact in fp32 for bf16 inputs, as the plain
+// All keep the products exact in fp32 for bf16 inputs, as the plain
 // versions do.
 //
-// Two operand layouts (the Layout template argument): RowMajorLayout is
-// the one above (the decode's kernels); NchwLayout reads an unpadded NCHW
-// x (B, Cx, H, W) and h_prev (B, C, H, W) with a zero SAME halo and the
-// gate weight as OHWI (4C, 3, 3, Cx+C) (column tap * (Cx+C) + ch of a
-// weight row), for the ConvLSTM step of clstm_step.cu. Both give the main
-// loops the same concat-channel order (x channels, then h) and the same
-// products in the same order.
+// Two operand layouts (the Layout template argument of the FMA and NCHW
+// loops): RowMajorLayout is the one above (the decode's kernels);
+// NchwLayout reads an unpadded NCHW x (B, Cx, H, W) and h_prev (B, C, H,
+// W) with a zero SAME halo and the gate weight as OHWI (4C, 3, 3, Cx+C)
+// (column tap * (Cx+C) + ch of a weight row), for the ConvLSTM step of
+// clstm_step.cu. Both give the main loops the same concat-channel order
+// (x channels, then h) and the same products in the same order.
 
 #pragma once
 
@@ -71,7 +80,6 @@ constexpr size_t kMaxSmem = 227 * 1024;
 // The decode's (B, H, C, W) tensors: x_pad (B, H+2, Cx, W+2) with its zero
 // ring, h_prev unpadded, the packed weight of pack_cell_weights.
 struct RowMajorLayout {
-  static constexpr bool kPackedWeight = true;
   // halo value at padded row py, padded column px, concat channel ch
   template <typename T>
   static __device__ __forceinline__ T halo(const T* __restrict__ h_prev,
@@ -100,7 +108,6 @@ struct RowMajorLayout {
 // NCHW x (B, Cx, H, W) and h_prev (B, C, H, W), both unpadded with a zero
 // SAME halo, and the OHWI weight (4C, 3, 3, Cx+C).
 struct NchwLayout {
-  static constexpr bool kPackedWeight = false;
   template <typename T>
   static __device__ __forceinline__ T halo(const T* __restrict__ h_prev,
                                            const T* __restrict__ x,
@@ -382,6 +389,22 @@ __device__ __forceinline__ void ldsm_x2(unsigned (&a)[2], unsigned addr) {
                : "r"(addr));
 }
 
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&a)[4],
+                                              unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&a)[2],
+                                              unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(a[0]), "=r"(a[1])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void stsm_x4_trans(unsigned addr,
                                               const unsigned (&v)[4]) {
   asm volatile(
@@ -400,6 +423,33 @@ __device__ __forceinline__ void stsm_x2_trans(unsigned addr,
       : "memory");
 }
 
+// An mbarrier in shared memory: init for `count` arrivals a phase; an
+// arrival of this thread once its cp.async copies so far have landed; a
+// wait for the phase of the given parity to complete.
+__device__ __forceinline__ void mbar_init(unsigned addr, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(addr),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned addr) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
@@ -412,10 +462,9 @@ __host__ __device__ inline int mma_stride(int cn) {
   return 8 * (units % 2 ? units : units + 1);
 }
 
-// Table of k8 groups (packed columns 8g .. 8g+7) -> halo offset of pixel 0
-// for a halo of x channels (xg groups of 8) then h channels (hg groups).
-// With wofs, also the group's first weight column in an OHWI weight row:
-// tap * (Cx + C) + chs.
+// Table of k8 groups (x channels in xg groups of 8, then h channels in hg
+// groups, tap-major) -> halo offset of pixel 0; with wofs, also the
+// group's first weight column in an OHWI weight row: tap * (Cx + C) + chs.
 __device__ __forceinline__ void fill_group_offsets(int* goff, int xg, int hg,
                                                    int Cx, int twp,
                                                    int stride,
@@ -437,9 +486,9 @@ __device__ __forceinline__ void fill_group_offsets(int* goff, int xg, int hg,
 
 // One block: image b, output rows y0 .. y0 + R - 1, columns [x0, x0 + tw),
 // tw = 16 * wm; the R + 2 halo rows are staged once for the R rows.
-// Warp w: m-tile w % wm, channel blocks (w / wm) * J .. + J - 1.
-// NchwLayout's weight groups are found by the wofs table (OHWI columns)
-// instead of 8 * g (packed columns); a B pair is one 32-bit load in both.
+// Warp w: m-tile w % wm, channel blocks (w / wm) * J .. + J - 1. The
+// weight groups are found by the wofs table (OHWI columns); a B pair is
+// one 32-bit load.
 template <int J, typename Layout, typename Epi>
 __global__ void __launch_bounds__(kThreads)
 cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
@@ -462,11 +511,8 @@ cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
   const int hg = C / 8;             // h groups per tap
   const int n_groups = 9 * (xg + hg);
   int* goff = reinterpret_cast<int*>(halo + (R + 2) * twp * stride);
-  int* wofs = goff + n_groups;  // NchwLayout only
-  if constexpr (Layout::kPackedWeight)
-    fill_group_offsets(goff, xg, hg, Cx, twp, stride);
-  else
-    fill_group_offsets(goff, xg, hg, Cx, twp, stride, wofs);
+  int* wofs = goff + n_groups;
+  fill_group_offsets(goff, xg, hg, Cx, twp, stride, wofs);
   stage_halo<Layout>(h_prev, x_pad, b, y0, x0, H, W, C, Cx, twp, R + 2,
                      [&](int dy, int ch, int col, __nv_bfloat16 v) {
                        halo[(dy * twp + col) * stride + ch] = v;
@@ -483,7 +529,7 @@ cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
   const int half = lane >> 4;
 
   // weight pair pointers: row n = q*C + (jb0+j)*8 + lane/4, column
-  // 8*g + 2*(lane%4) (packed) or wofs[g] + 2*(lane%4) (OHWI)
+  // wofs[g] + 2*(lane%4)
   const __nv_bfloat16* wrow =
       wt + (size_t)(jb0 * 8 + (lane >> 2)) * K + 2 * (lane & 3);
 
@@ -496,17 +542,10 @@ cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const __nv_bfloat16* wp = wrow + (size_t)(q * C + j * 8) * K;
-        if constexpr (Layout::kPackedWeight) {
-          dst[j][q][0] = *reinterpret_cast<const unsigned*>(wp + 8 * g0);
-          dst[j][q][1] =
-              has_g1 ? *reinterpret_cast<const unsigned*>(wp + 8 * (g0 + 1))
-                     : 0u;
-        } else {
-          dst[j][q][0] = *reinterpret_cast<const unsigned*>(wp + wofs[g0]);
-          dst[j][q][1] =
-              has_g1 ? *reinterpret_cast<const unsigned*>(wp + wofs[g0 + 1])
-                     : 0u;
-        }
+        dst[j][q][0] = *reinterpret_cast<const unsigned*>(wp + wofs[g0]);
+        dst[j][q][1] =
+            has_g1 ? *reinterpret_cast<const unsigned*>(wp + wofs[g0 + 1])
+                   : 0u;
       }
   };
   for (int rr = 0; rr < R && y0 + rr < H; ++rr) {
@@ -581,8 +620,7 @@ cudaError_t launch_cell_mma(const void* h_prev, const void* x_pad,
   while (true) {
     smem = (size_t)(R + 2) * (tw + 2) * mma_stride(Cx + C) *
                sizeof(__nv_bfloat16) +
-           (size_t)9 * (Cx + C) / 8 * sizeof(int) *
-               (Layout::kPackedWeight ? 1 : 2);
+           (size_t)9 * (Cx + C) / 8 * sizeof(int) * 2;
     if (smem <= kMaxSmem || R == 1) break;
     R /= 2;
   }
@@ -632,10 +670,23 @@ cudaError_t launch_cell_fma(const void* h_prev, const void* x_pad,
   return cudaGetLastError();
 }
 
-// The gate convolution with epilogue epi: the tensor cores for bf16 with
-// C and Cx multiples of 8, the FMA loop otherwise. x_pad is the x operand
-// of the layout (padded for RowMajorLayout, unpadded for NchwLayout).
-template <typename T, typename Layout = RowMajorLayout, typename Epi>
+// The FMA loop with its thread tile chosen by C.
+template <typename T, typename Layout, typename Epi>
+cudaError_t launch_cell_fma_loop(const void* h_prev, const void* x_pad,
+                                 const void* wt, int B, int H, int W, int C,
+                                 int Cx, cudaStream_t stream, Epi epi) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cx < 0)
+    return cudaErrorInvalidValue;
+  if (C % 2 == 0)
+    return launch_cell_fma<T, 2, 4, Layout>(h_prev, x_pad, wt, B, H, W, C,
+                                            Cx, stream, epi);
+  return launch_cell_fma<T, 1, 8, Layout>(h_prev, x_pad, wt, B, H, W, C, Cx,
+                                          stream, epi);
+}
+
+// The NCHW gate convolution with epilogue epi (K8): the tensor cores for
+// bf16 with C and Cx multiples of 8, the FMA loop otherwise.
+template <typename T, typename Layout, typename Epi>
 cudaError_t launch_cell(const void* h_prev, const void* x_pad, const void* wt,
                         int B, int H, int W, int C, int Cx,
                         cudaStream_t stream, Epi epi) {
@@ -651,11 +702,594 @@ cudaError_t launch_cell(const void* h_prev, const void* x_pad, const void* wt,
                                              Cx, stream, epi);
   }
   if (err != cudaErrorNotSupported) return err;
-  if (C % 2 == 0)
-    return launch_cell_fma<T, 2, 4, Layout>(h_prev, x_pad, wt, B, H, W, C,
-                                            Cx, stream, epi);
-  return launch_cell_fma<T, 1, 8, Layout>(h_prev, x_pad, wt, B, H, W, C, Cx,
-                                          stream, epi);
+  return launch_cell_fma_loop<T, Layout>(h_prev, x_pad, wt, B, H, W, C, Cx,
+                                         stream, epi);
+}
+
+// ---- the staged loop (K1, K4) -------------------------------------------
+//
+// The host's plan (cell_plan in ops/fused_cell.py): warps_m x warps_n
+// warps of WM m-tiles (16 pixels of one row) x J blocks of 8 hidden
+// channels, i.e. 4 J n-tiles, the gates i, f, o, g of each block, so a
+// lane holds all four gates of its (pixel, channel) pairs; units of
+// rows x tw output pixels (rows * tw = 16 WM warps_m) and a tile of Ct =
+// 8 J warps_n hidden channels (weight rows q C + c0 .. + Ct - 1 for each
+// gate q); K-chunks of all nine taps x cc channels, the x channels' chunks
+// first (pack_cell_weights' order), in a ring of `stages`; the chunks cut
+// into `splits` parts and the units dealt in order to `groups` blocks per
+// (channel tile, part).
+struct CellPlan {
+  int warps_m, warps_n, rows, tw, cc, stages, splits, groups;
+};
+
+// Shared-memory layout of one block, in bf16 elements: the ring's raw
+// input rows, the weight slots (one when a block has one chunk: it
+// stays), the transposed halo, the epilogue's planes (none with parts),
+// 8 elements of trash for stmatrix rows past the halo, and the mbarrier
+// of the planes' copies. Every region
+// starts 16-byte aligned; each row stride is an odd number of 16-byte
+// groups, so the 8 rows of an ldmatrix or stmatrix hit 8 bank groups.
+struct CellSmem {
+  int rs, ks, cs, twp, os, raw, wgt, wslots, halo, epi, stages;
+  __host__ __device__ CellSmem(const CellPlan& p, int ct, int cps,
+                               int planes) {
+    rs = p.tw + 24;   // raw row: h pixels x0 - 8 .. x0 + tw + 15
+    ks = 9 * p.cc + ((9 * p.cc / 8) % 2 ? 16 : 8);   // weight row
+    cs = p.cc + ((p.cc / 8) % 2 ? 0 : 8);            // halo row
+    twp = p.tw + 2;   // halo rows per staged input row: padded columns
+    os = p.rows * p.tw + 8;   // epilogue row: the unit's pixels
+    raw = (p.rows + 2) * p.cc * rs;
+    wgt = 4 * ct * ks;
+    wslots = cps == 1 ? 1 : p.stages;
+    halo = (p.rows + 2) * twp * cs;
+    epi = p.splits > 1 ? 0 : planes * ct * os;
+    stages = p.stages;
+  }
+  // then 16 bytes for the epilogue's mbarrier
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(stages * raw + wslots * wgt + halo + epi + 8) *
+               sizeof(__nv_bfloat16) +
+           16;
+  }
+};
+
+// The epilogue Epi (LstmForward in fused_cell.cu, LstmBackward in
+// cell_bwd.cu) names kIn planes of W-contiguous rows (in_row), staged per
+// unit as [plane][channel][pixel], and kOut outputs (out_row), each
+// written into plane out_plane(k) before it leaves; tile() maps the four
+// gate sums and the kIn plane values of one (pixel, channel) to the kOut
+// outputs, and operator() is the same map on device memory for one
+// (row, c, x) (the parts' sum).
+//
+// kBlocks: the blocks an SM holds at once, the plan's per_sm: two (a
+// thread within 128 registers) only with at most 64 accumulators a thread
+// and where two blocks' shared memory fits.
+//
+// kNarrow: cc = 8, half of mma's k16: a k16 step pairs two taps of the
+// chunk (5 steps for 9 taps, the last half empty: 11% more products than
+// the chunk needs, at cells whose bytes bound them).
+template <int WM, int J, bool kNarrow, int kBlocks, typename Epi>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
+                   const __nv_bfloat16* __restrict__ x_pad,
+                   const __nv_bfloat16* __restrict__ wt,
+                   float* __restrict__ ws, int B, int H, int W, int C, int Cx,
+                   CellPlan p, Epi epi) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ct = 8 * J * p.warps_n;
+  const int cc = p.cc;
+  const int nxc = Cx / cc;                      // x chunks, then h chunks
+  const int cps = (Cx + C) / cc / p.splits;     // chunks a block walks a unit
+  const CellSmem L(p, ct, cps, Epi::kIn);
+  bf16* raw0 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wgt0 = raw0 + L.stages * L.raw;
+  bf16* halo = wgt0 + L.wslots * L.wgt;
+  bf16* etile = halo + L.halo;
+  bf16* trash = etile + L.epi;
+  const unsigned mbar = smem_addr(trash + 8);
+  if (threadIdx.x == 0) mbar_init(mbar, blockDim.x);
+  __syncthreads();
+  unsigned mbar_phase = 0;
+
+  const int R = p.rows;
+  const int tw = p.tw;
+  const int K = 9 * (Cx + C);
+  const int n_xt = (W + tw - 1) / tw;
+  const int n_rg = (H + R - 1) / R;
+  const long long n_units = (long long)B * n_rg * n_xt;
+  // channel tiles fastest: the blocks of one unit run together and share
+  // its halo in L2
+  const int n_ct = C / ct;
+  const int c0 = blockIdx.x % n_ct * ct;
+  const int split = blockIdx.x / n_ct % p.splits;
+  const int group = blockIdx.x / (n_ct * p.splits);
+  const long long u_begin = n_units * group / p.groups;
+  const int n_my = (int)(n_units * (group + 1) / p.groups - u_begin);
+  const int k_begin = split * cps;
+  const int n_st = n_my * cps;   // ring stages: (unit, chunk), chunk-minor
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nw = blockDim.x / 32;
+  const int wmi = warp % p.warps_m;
+  const int nw0 = warp / p.warps_m * 8 * J;   // the warp's first channel
+
+  auto unit_origin = [&](long long u, int& b, int& y0, int& x0) {
+    x0 = (int)(u % n_xt) * tw;
+    y0 = (int)(u / n_xt % n_rg) * R;
+    b = (int)(u / ((long long)n_xt * n_rg));
+  };
+  // x_pad's row (b, py, x channel ch) starts at element x_row(b, py, ch);
+  // (W + 2)-element rows are 4-byte but not 16-byte aligned: a row is
+  // staged from the 16-byte boundary at or before padded column x0, and
+  // its phase (x_row + x0) % 8 (even) says where x0 landed
+  const long long x_numel = (long long)B * (H + 2) * Cx * (W + 2);
+  auto x_row = [&](int b, int py, int ch) {
+    return ((long long)(b * (H + 2) + py) * Cx + ch) * (W + 2);
+  };
+
+  // cp.async of stage k into ring slot k % stages: raw[(R + 2) rows][cc]
+  // [rs] holds x_pad's rows from the 16-byte boundary (tw / 8 + 1 copies,
+  // past the tensor's end zero) or h's columns x0 - 8 .. x0 + tw + 7 (tw /
+  // 8 + 2 copies, zero outside the image); the weight slot [4 Ct][ks] the
+  // chunk's columns of the block's weight rows, gate-major, tap-major
+  const int qx = tw / 8 + 1;
+  const int qh = tw / 8 + 2;
+  const Walk w_x(threadIdx.x, blockDim.x, qx, cc);
+  const Walk w_h(threadIdx.x, blockDim.x, qh, cc);
+  const Walk w_wgt(threadIdx.x, blockDim.x, cc / 8, 9);
+  auto fetch = [&](int k) {
+    const int slot = k % L.stages;
+    int b, y0, x0;
+    unit_origin(u_begin + k / cps, b, y0, x0);
+    const int chunk = k_begin + k % cps;
+    const bool is_x = chunk < nxc;
+    const int ch0 = (is_x ? chunk : chunk - nxc) * cc;
+    bf16* raw = raw0 + slot * L.raw;
+    if (is_x) {
+      Walk w = w_x;
+      for (int i = threadIdx.x; i < (R + 2) * cc * qx;
+           i += blockDim.x, w.next()) {
+        const long long e =
+            ((x_row(b, y0 + w.c, ch0 + w.b) + x0) & ~7LL) + 8 * w.a;
+        const bool ok = y0 + w.c < H + 2 && e < x_numel;
+        cp_async16(raw + (w.c * cc + w.b) * L.rs + 8 * w.a,
+                   ok ? x_pad + e : wt,
+                   ok ? (int)min(16LL, 2 * (x_numel - e)) : 0);
+      }
+    } else {
+      Walk w = w_h;
+      for (int i = threadIdx.x; i < (R + 2) * cc * qh;
+           i += blockDim.x, w.next()) {
+        const int iy = y0 + w.c - 1;
+        const int ix = x0 - 8 + 8 * w.a;
+        const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+        cp_async16(raw + (w.c * cc + w.b) * L.rs + 8 * w.a,
+                   ok ? h_prev + ((size_t)(b * H + iy) * C + ch0 + w.b) * W +
+                            ix
+                      : wt,
+                   ok ? 16 : 0);
+      }
+    }
+    if (cps == 1 && k > 0) return;   // the block's one chunk stays
+    bf16* wg = wgt0 + (cps == 1 ? 0 : slot) * L.wgt;
+    const int col0 = is_x ? ch0 : 9 * Cx + ch0;
+    const int tap_cols = is_x ? Cx : C;
+    Walk w = w_wgt;
+    for (int i = threadIdx.x; i < 4 * ct * 9 * (cc / 8);
+         i += blockDim.x, w.next()) {
+      const int q = w.c / ct;
+      cp_async16(wg + w.c * L.ks + w.b * cc + 8 * w.a,
+                 wt + (size_t)(q * C + c0 + w.c - q * ct) * K + col0 +
+                     w.b * tap_cols + 8 * w.a,
+                 16);
+    }
+  };
+
+  // the epilogue's planes of unit u: [kIn planes][Ct][os], each row the
+  // unit's pixels (R rows of tw); zero past the image
+  const Walk w_e(threadIdx.x, blockDim.x, tw / 8, R);
+  auto fetch_epi = [&](long long u) {
+    int b, y0, x0;
+    unit_origin(u, b, y0, x0);
+    Walk w = w_e;
+    for (int i = threadIdx.x; i < Epi::kIn * ct * R * (tw / 8);
+         i += blockDim.x, w.next()) {
+      const int y = y0 + w.b;
+      const int xx = x0 + 8 * w.a;
+      const bool ok = y < H && xx < W;
+      const int pl = w.c / ct;
+      cp_async16(etile + w.c * L.os + w.b * tw + 8 * w.a,
+                 ok ? epi.in_row(pl, (size_t)b * H + y, c0 + w.c - pl * ct) +
+                          xx
+                    : wt,
+                 ok ? 16 : 0);
+    }
+  };
+
+  // raw (stage k) -> halo[(R + 2) rows][tw + 2 padded columns][cs] in 8x8
+  // blocks (8 channels x 8 padded columns), four neighbouring column
+  // blocks a warp instruction: x rows by 32-bit loads at their phase, h
+  // rows by ldmatrix (raw column j is padded column j - 7), either way the
+  // fragment ldmatrix would give, then stmatrix.trans; rows of a block
+  // outside the padded columns go to the trash
+  const int nq4 = (tw / 8 + 5) / 4;
+  const int nquad = (R + 2) * (cc / 8) * nq4;
+  const Walk w_t(warp, nw, nq4, cc / 8);
+  auto transpose = [&](int k) {
+    int b, y0, x0;
+    unit_origin(u_begin + k / cps, b, y0, x0);
+    const int chunk = k_begin + k % cps;
+    const bool is_x = chunk < nxc;
+    const int ch0 = (is_x ? chunk : chunk - nxc) * cc;
+    const bf16* raw = raw0 + (k % L.stages) * L.raw;
+    Walk w = w_t;
+    for (int qd = warp; qd < nquad; qd += nw, w.next()) {
+      const int r = w.c;
+      const int g = w.b;
+      const int q = 4 * w.a + (lane >> 3);   // this lane's store block
+      unsigned v[4];
+      if (!is_x) {
+        ldmatrix_x4(v, raw + (r * cc + 8 * g + (lane & 7)) * L.rs + 8 * q);
+      } else {
+        const int c = 8 * g + (lane >> 2);
+        const int phase = (int)((x_row(b, y0 + r, ch0 + c) + x0) & 7);
+        const bf16* row = raw + (r * cc + c) * L.rs + phase + 2 * (lane & 3);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          v[m] = *reinterpret_cast<const unsigned*>(row + 8 * (4 * w.a + m));
+      }
+      const int pc = 8 * q + (lane & 7) - (is_x ? 0 : 7);
+      stmatrix_x4_trans(pc >= 0 && pc < L.twp
+                            ? halo + (r * L.twp + pc) * L.cs + 8 * g
+                            : trash,
+                        v);
+    }
+  };
+
+
+  float acc[WM][J][4][4];
+  auto zero_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < WM; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][q][e] = 0.0f;
+  };
+  zero_acc();
+
+  // the warp's m-tiles: unit pixel u_m[i] = r * tw + px (16 pixels of one
+  // output row r); A rows by ldmatrix from halo row r + dy, column px + dx
+  const unsigned halo_s = smem_addr(halo);
+  int u_m[WM];
+  unsigned a_base[WM];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+    const int mt = wmi * WM + i;
+    const int r = mt / (tw / 16);
+    const int px = mt % (tw / 16) * 16;
+    u_m[i] = r * tw + px;
+    a_base[i] = halo_s + ((r * L.twp + px + (lane & 15)) * L.cs +
+                          (kNarrow ? 0 : (lane >> 4) * 8)) * 2;
+  }
+  // B rows by ldmatrix x4: matrices (gate q, k 0-7), (q, k 8-15), (q + 1,
+  // k 0-7), (q + 1, k 8-15) of a channel block
+  const unsigned b_lane =
+      ((nw0 + (lane & 7) + (lane >> 4) * ct) * L.ks + ((lane >> 3) & 1) * 8) *
+      2;
+  // one k16 step: A from halo offset a_off (lanes 16-31: a_off_hi), B from
+  // weight column col; hi_zero drops the upper half of k (both operands)
+  auto step = [&](unsigned wb, unsigned a_off, unsigned a_off_hi, int col,
+                  bool hi_zero) {
+    unsigned a[WM][4];
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+      ldsm_x4(a[i], a_base[i] + ((lane >> 4) ? a_off_hi : a_off));
+      if (hi_zero) a[i][2] = a[i][3] = 0u;
+    }
+    unsigned bf[J][4][2];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; q += 2) {
+        unsigned t4[4];
+        ldsm_x4(t4, wb + ((j * 8 + q * ct) * L.ks + col) * 2);
+        bf[j][q][0] = t4[0];
+        bf[j][q][1] = hi_zero ? 0u : t4[1];
+        bf[j][q + 1][0] = t4[2];
+        bf[j][q + 1][1] = hi_zero ? 0u : t4[3];
+      }
+#pragma unroll
+    for (int i = 0; i < WM; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma_bf16(acc[i][j][q], a[i], bf[j][q][0], bf[j][q][1]);
+  };
+  auto tap_off = [&](int tap) {
+    return (unsigned)(((tap / 3) * L.twp + tap % 3) * L.cs * 2);
+  };
+  auto compute = [&](int slot) {
+    const unsigned wb = smem_addr(wgt0 + (cps == 1 ? 0 : slot) * L.wgt) +
+                        b_lane;
+    if constexpr (kNarrow) {
+      // 8-channel chunks: a k16 step takes taps 2s and 2s + 1 (A's lanes
+      // 16-31 address tap 2s + 1's rows; the weight columns 16s .. 16s +
+      // 15 are those taps' channels); tap 8 alone, its upper half zero
+#pragma unroll
+      for (int s2 = 0; s2 < 5; ++s2) {
+        const int t0 = 2 * s2;
+        step(wb, tap_off(t0), tap_off(t0 < 8 ? t0 + 1 : t0), 16 * s2,
+             t0 == 8);
+      }
+    } else {
+      for (int kk = 0; kk < cc; kk += 16) {
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const unsigned a_off = tap_off(tap) + kk * 2;
+          step(wb, a_off, a_off, tap * cc + kk, false);
+        }
+      }
+    }
+  };
+
+  // D fragment: pixels lane / 4 (+ 8), channels 2 (lane % 4) (+ 1)
+  auto pack = [](float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  };
+  auto unpack = [](unsigned v, float& lo, float& hi) {
+    const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&v);
+    lo = __low2float(h2);
+    hi = __high2float(h2);
+  };
+  auto epilogue = [&](long long u) {
+    int b, y0, x0;
+    unit_origin(u, b, y0, x0);
+    if (p.splits > 1) {
+      // fp32 partial gate sums of this part, (B, H, 4C, W), straight from
+      // the fragments (a quad's 8 pixels are one 32-byte sector)
+      float* part = ws + (size_t)split * ((size_t)B * H * 4 * C * W);
+#pragma unroll
+      for (int i = 0; i < WM; ++i) {
+        const int y = y0 + u_m[i] / tw;
+        if (y >= H) continue;
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int xx = x0 + u_m[i] % tw + (lane >> 2) + (e >> 1) * 8;
+              const int c = c0 + nw0 + 8 * j + 2 * (lane & 3) + (e & 1);
+              if (xx < W)
+                part[((size_t)(b * H + y) * 4 * C + q * C + c) * W + xx] =
+                    acc[i][j][q][e];
+            }
+      }
+      zero_acc();
+      return;
+    }
+    mbar_wait(mbar, mbar_phase);   // this unit's planes have landed
+    mbar_phase ^= 1u;
+    // fragments of the planes by ldmatrix.trans of 8 channels x 8 pixels:
+    // x4 matrices (plane pl, pixels 0-7), (pl, 8-15), (pl + 1, 0-7), (pl
+    // + 1, 8-15); the outputs go back by stmatrix.trans to the same places
+    // of their planes
+    const unsigned plane = ct * L.os * 2;
+    const unsigned e_lane = smem_addr(etile) +
+                            ((nw0 + (lane & 7)) * L.os +
+                             ((lane >> 3) & 1) * 8) * 2;
+#pragma unroll
+    for (int i = 0; i < WM; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const unsigned at = e_lane + (j * 8 * L.os + u_m[i]) * 2;
+        // plane pl's pairs: vp[pl][0] pixel lane / 4 (e = 0, 1), vp[pl][1]
+        // pixel lane / 4 + 8 (e = 2, 3), unpacked one e at a time
+        unsigned vp[Epi::kIn][2];
+#pragma unroll
+        for (int pl = 0; pl < Epi::kIn; pl += 2) {
+          if (pl + 1 < Epi::kIn) {
+            unsigned t[4];
+            ldsm_x4_trans(t, at + (pl + (lane >> 4)) * plane);
+            vp[pl][0] = t[0];
+            vp[pl][1] = t[1];
+            vp[pl + 1][0] = t[2];
+            vp[pl + 1][1] = t[3];
+          } else {
+            ldsm_x2_trans(vp[pl], at + pl * plane);
+          }
+        }
+        unsigned op[Epi::kOut][2];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float lo[Epi::kOut], hi[Epi::kOut];
+#pragma unroll
+          for (int s1 = 0; s1 < 2; ++s1) {
+            const int e = 2 * hf + s1;
+            const float g[4] = {acc[i][j][0][e], acc[i][j][1][e],
+                                acc[i][j][2][e], acc[i][j][3][e]};
+            float ve[Epi::kIn];
+#pragma unroll
+            for (int pl = 0; pl < Epi::kIn; ++pl) {
+              float x_lo, x_hi;
+              unpack(vp[pl][hf], x_lo, x_hi);
+              ve[pl] = s1 ? x_hi : x_lo;
+            }
+            if (s1)
+              epi.tile(g, ve, hi);
+            else
+              epi.tile(g, ve, lo);
+          }
+#pragma unroll
+          for (int k = 0; k < Epi::kOut; ++k) op[k][hf] = pack(lo[k], hi[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < Epi::kOut; k += 2) {
+          if (k + 1 < Epi::kOut) {
+            const unsigned t[4] = {op[k][0], op[k][1], op[k + 1][0],
+                                   op[k + 1][1]};
+            stsm_x4_trans(at + Epi::out_plane(k + (lane >> 4)) * plane, t);
+          } else {
+            stsm_x2_trans(at + Epi::out_plane(k) * plane, op[k]);
+          }
+        }
+      }
+    zero_acc();
+    __syncthreads();
+    // the outputs' rows: 16-byte stores of 8 pixels, neighbouring threads
+    // on neighbouring pieces of a row
+    Walk w = w_e;
+    for (int i = threadIdx.x; i < Epi::kOut * ct * R * (tw / 8);
+         i += blockDim.x, w.next()) {
+      const int y = y0 + w.b;
+      const int xx = x0 + 8 * w.a;
+      if (y >= H || xx >= W) continue;
+      const int k = w.c / ct;
+      const int cl = w.c - k * ct;
+      *reinterpret_cast<uint4*>(epi.out_row(k, (size_t)b * H + y, c0 + cl) +
+                                xx) =
+          *reinterpret_cast<const uint4*>(
+              etile + (Epi::out_plane(k) * ct + cl) * L.os + w.b * tw +
+              8 * w.a);
+    }
+  };
+
+  // the ring: stage k waits for its copies, the slot freed by stage k - 1
+  // takes stage k + stages - 1, then stage k is transposed and multiplied;
+  // a unit's first chunk also issues the copies of the unit's epilogue
+  // planes (the previous unit's epilogue is done with them), tracked by
+  // the mbarrier, so they land while the unit's chunks are multiplied; a
+  // unit's last chunk ends in its epilogue
+  for (int s = 0; s < L.stages - 1; ++s) {
+    if (s < n_st) fetch(s);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n_st; ++k) {
+    if (L.stages == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    if (p.splits == 1 && k % cps == 0) {
+      fetch_epi(u_begin + k / cps);
+      cp_async_mbar_arrive(mbar);
+    }
+    const int next = k + L.stages - 1;
+    if (next < n_st) fetch(next);
+    cp_async_commit();
+    transpose(k);
+    __syncthreads();
+    compute(k % L.stages);
+    if (k % cps == cps - 1) epilogue(u_begin + k / cps);
+  }
+  cp_async_wait<0>();
+}
+
+// The parts' sum, in part order, through the element epilogue: one thread
+// a (row, c, x) of the (B, H, C, W) state.
+template <typename Epi>
+__global__ void cell_reduce_kernel(const float* __restrict__ ws, Epi epi,
+                                   int C, int W, int splits, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int x = (int)(i % W);
+  const int c = (int)(i / W % C);
+  const size_t row = (size_t)(i / ((long long)W * C));
+  float g[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const size_t at = (row * 4 * C + q * C + c) * W + x;
+    float s = 0.0f;
+    for (int k = 0; k < splits; ++k) s += ws[(size_t)k * 4 * n + at];
+    g[q] = s;
+  }
+  epi(row, c, x, g[0], g[1], g[2], g[3]);
+}
+
+template <int WM, int J, bool kNarrow, int kBlocks, typename Epi>
+cudaError_t launch_staged(const void* h_prev, const void* x_pad,
+                          const void* wt, float* ws, int B, int H, int W,
+                          int C, int Cx, const CellPlan& p,
+                          cudaStream_t stream, Epi epi) {
+  const int ct = 8 * J * p.warps_n;
+  const size_t smem =
+      CellSmem(p, ct, (Cx + C) / p.cc / p.splits, Epi::kIn).bytes();
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kern = cell_staged_kernel<WM, J, kNarrow, kBlocks, Epi>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)(C / ct) * p.splits * p.groups;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  kern<<<(unsigned)blocks, 32 * p.warps_m * p.warps_n, smem, stream>>>(
+      static_cast<const bf*>(h_prev), static_cast<const bf*>(x_pad),
+      static_cast<const bf*>(wt), ws, B, H, W, C, Cx, p, epi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const long long n = (long long)B * H * C * W;
+  cell_reduce_kernel<Epi><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      ws, epi, C, W, p.splits, n);
+  return cudaGetLastError();
+}
+
+// The staged loop as the plan cuts it (bf16 operands): warp tiles of wm
+// m-tiles x wj channel blocks, per_sm blocks an SM, the rest of the plan
+// in p; ws holds at least splits * B * H * 4C * W floats where splits >
+// 1. Returns cudaErrorInvalidValue for a plan or operands the kernel does
+// not take.
+template <typename Epi>
+cudaError_t launch_cell_staged(const void* h_prev, const void* x_pad,
+                               const void* wt, float* ws, long long ws_floats,
+                               int B, int H, int W, int C, int Cx, int wm,
+                               int wj, int per_sm, const CellPlan& p,
+                               cudaStream_t stream, Epi epi) {
+  const int ct = 8 * wj * p.warps_n;
+  const long long units =
+      (long long)B * ((H + p.rows - 1) / (p.rows > 0 ? p.rows : 1)) *
+      ((W + p.tw - 1) / (p.tw > 0 ? p.tw : 1));
+  const int cc = p.cc;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cx < 0 || C % 8 || Cx % 8 ||
+      W % 8 || (wm != 1 && wm != 2 && wm != 4) ||
+      (wj != 1 && wj != 2 && wj != 4) || wm * wj > 8 || p.warps_m < 1 ||
+      p.warps_n < 1 || p.warps_m * p.warps_n > 8 || C % ct ||
+      p.rows < 1 || p.tw < 16 || p.tw % 16 ||
+      p.rows * p.tw != 16 * wm * p.warps_m ||
+      (cc != 8 && cc != 16 && cc != 32 && cc != 64) || C % cc || Cx % cc ||
+      (cc == 8 && wj > 2) || (p.stages != 2 && p.stages != 3) ||
+      p.splits < 1 || ((Cx + C) / cc) % p.splits || p.groups < 1 ||
+      p.groups > units || (Cx > 0) != (x_pad != nullptr) ||
+      (per_sm != 1 && (per_sm != 2 || wm * wj > 4)) ||
+      (p.splits > 1 &&
+       (ws == nullptr ||
+        ws_floats < (long long)p.splits * B * H * 4 * C * W)))
+    return cudaErrorInvalidValue;
+#define RSIS_STAGED(WM_, J_, N_, PB_)                                        \
+  if (wm == WM_ && wj == J_ && (cc == 8) == N_ && per_sm == PB_)             \
+    return launch_staged<WM_, J_, N_, PB_>(h_prev, x_pad, wt, ws, B, H, W, C, \
+                                           Cx, p, stream, epi);
+  RSIS_STAGED(1, 1, false, 1) RSIS_STAGED(1, 2, false, 1)
+  RSIS_STAGED(1, 4, false, 1) RSIS_STAGED(2, 1, false, 1)
+  RSIS_STAGED(2, 2, false, 1) RSIS_STAGED(2, 4, false, 1)
+  RSIS_STAGED(4, 1, false, 1) RSIS_STAGED(4, 2, false, 1)
+  RSIS_STAGED(1, 1, true, 1) RSIS_STAGED(1, 2, true, 1)
+  RSIS_STAGED(2, 1, true, 1) RSIS_STAGED(2, 2, true, 1)
+  RSIS_STAGED(4, 1, true, 1) RSIS_STAGED(4, 2, true, 1)
+  RSIS_STAGED(1, 1, false, 2) RSIS_STAGED(1, 2, false, 2)
+  RSIS_STAGED(1, 4, false, 2) RSIS_STAGED(2, 1, false, 2)
+  RSIS_STAGED(2, 2, false, 2) RSIS_STAGED(4, 1, false, 2)
+  RSIS_STAGED(1, 1, true, 2) RSIS_STAGED(1, 2, true, 2)
+  RSIS_STAGED(2, 1, true, 2) RSIS_STAGED(2, 2, true, 2)
+  RSIS_STAGED(4, 1, true, 2)
+#undef RSIS_STAGED
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace rsis

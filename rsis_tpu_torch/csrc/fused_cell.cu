@@ -1,5 +1,5 @@
 // Fused ConvLSTM decode cell for Hopper (sm_90a): implicit-GEMM gate
-// convolution with the LSTM update fused into its epilogue.
+// convolution with the LSTM update fused into its epilogue (K1).
 //
 // Replaces: rsis_tpu/ops/pallas_decode.py::_fused_cell_rowmajor (kernel
 // bodies _cell_kernel and _cell_kernel_dyfold). One kernel covers both: the
@@ -14,19 +14,38 @@
 // cell_common.cuh, which holds the gate convolution shared with the
 // backward kernel cell_bwd.cu).
 //
-// What bounds it on the card: at the decode shapes (4C <= 512,
-// K = 9(Cx+C) <= 1728) the gate conv is about 1.8 GFLOP per image per
-// cell against 1-21 MB of inputs and outputs, so on the tensor cores it is
-// bound by device-memory bytes (S, x_pad, h/c in and out).
+// What bounds it on the card: at the decode's cells (512x1024 input,
+// hidden 128, B = 32) the gate conv is 2 * 4C * 9(Cx+C) FLOP a pixel,
+// 19 GFLOP at cell 0 and 58 at cells 1-4, against S (4C), x_pad, h_prev,
+// c_prev read once and h, c written once: the tensor cores bound cells
+// 0-2 (0.020-0.059 ms) and device memory cells 3-4 (0.10 and 0.20 ms).
 //
-// Design against that bound: the 4C gates of a pixel and the im2col taps
-// never reach device memory. One block owns one output row of one image
-// (R rows on the tensor-core path), a tile of columns, and ALL 4C gate
-// channels of those pixels, so the LSTM epilogue runs on the accumulators
-// in registers. The halo of x_pad and h_prev for the tile (all Cx + C
-// channels) is staged once in shared memory (coalesced along W, 8 loads in
-// flight per thread); S, c_prev, h and c are read and written once.
-// wgmma/TMA and a pipelined weight stage are later work.
+// Design (bf16 with C, Cx and W multiples of 8: every cell of the decode;
+// the staged loop of cell_common.cuh, shared with K4):
+//   1. A block owns a unit of rows x tw output pixels (128-512) and a
+//      tile of Ct hidden channels with all four of their gates, so the
+//      LSTM update runs on the accumulators with no shuffles; it walks
+//      several units in turn where the cell has more units than the card
+//      has SMs.
+//   2. The weight streams once per unit, not once per 16 pixels, through
+//      shared memory in K-chunks of all nine taps x cc channels of x or of
+//      h (B by ldmatrix), beside the chunk's halo: a ring of 2-3 chunks
+//      filled by 16-byte cp.async copies of x_pad's rows (from their
+//      16-byte boundary) and h_prev's (zero SAME halo), transposed once to
+//      [pixel][channel] so a tap is a whole-row offset for A's ldmatrix.
+//      Cell 4 (C = 8) runs 8-channel chunks, two taps a k16 step of mma.
+//   3. S and c_prev are staged per unit as W-contiguous rows by 16-byte
+//      cp.async copies issued with the unit's first chunk and tracked by
+//      an mbarrier, read in the accumulators' layout by ldmatrix.trans; h
+//      and c go back by stmatrix.trans into the same rows and leave in
+//      16-byte stores.
+//   4. Where the units leave most SMs idle (cell 0 at small batches), the
+//      chunks are split into parts writing fp32 partial gate sums, and a
+//      second launch sums them in part order and runs the update: no
+//      atomics, the same bits on every launch.
+// The plan comes from the host (cell_plan in ops/fused_cell.py;
+// chip_k5_step.py --cell-sweep times every alternative). Everything else
+// (fp32, other widths) runs the FMA loop of cell_common.cuh.
 
 #include "cell_common.cuh"
 
@@ -36,7 +55,22 @@ using rsis::from_f;
 using rsis::sigmoid_f;
 using rsis::to_f;
 
-// The LSTM update on the four gate sums of one (row, c, x).
+// The LSTM update on the pre-activation gates (S included).
+__device__ __forceinline__ void lstm_update(float ai, float af, float ao,
+                                            float ag, float cp, float& h,
+                                            float& c) {
+  const float ig = sigmoid_f(ai);
+  const float fg = sigmoid_f(af);
+  const float og = sigmoid_f(ao);
+  const float gg = tanhf(ag);
+  c = fg * cp + ig * gg;
+  h = og * tanhf(c);
+}
+
+// The forward's epilogue: on one (row, c, x) of device memory (the FMA
+// loop, the parts' sum), or on the staged planes S_i, S_f, S_o, S_g,
+// c_prev of the tensor-core loop, h written into S_i's plane and c into
+// c_prev's.
 template <typename T>
 struct LstmForward {
   const T* __restrict__ c_prev;
@@ -49,42 +83,86 @@ struct LstmForward {
                                              float ai, float af, float ao,
                                              float ag) const {
     const T* s = s_term + (row * 4 * C + c) * W + x;
-    const float ig = sigmoid_f(ai + to_f(s[0]));
-    const float fg = sigmoid_f(af + to_f(s[(size_t)C * W]));
-    const float og = sigmoid_f(ao + to_f(s[(size_t)2 * C * W]));
-    const float gg = tanhf(ag + to_f(s[(size_t)3 * C * W]));
+    const size_t cw = (size_t)C * W;
     const size_t o = (row * C + c) * W + x;
-    const float c_new = fg * to_f(c_prev[o]) + ig * gg;
-    h_out[o] = from_f<T>(og * tanhf(c_new));
-    c_out[o] = from_f<T>(c_new);
+    float h, cn;
+    lstm_update(ai + to_f(s[0]), af + to_f(s[cw]), ao + to_f(s[2 * cw]),
+                ag + to_f(s[3 * cw]), to_f(c_prev[o]), h, cn);
+    h_out[o] = from_f<T>(h);
+    c_out[o] = from_f<T>(cn);
+  }
+
+  static constexpr int kIn = 5;
+  static constexpr int kOut = 2;
+  static __device__ __forceinline__ int out_plane(int k) { return k ? 4 : 0; }
+  __device__ __forceinline__ const T* in_row(int pl, size_t row,
+                                             int c) const {
+    return pl < 4 ? s_term + (row * 4 * C + pl * C + c) * W
+                  : c_prev + (row * C + c) * W;
+  }
+  __device__ __forceinline__ T* out_row(int k, size_t row, int c) const {
+    return (k ? c_out : h_out) + (row * C + c) * W;
+  }
+  __device__ __forceinline__ void tile(const float (&g)[4],
+                                       const float (&v)[kIn],
+                                       float (&o)[kOut]) const {
+    lstm_update(g[0] + v[0], g[1] + v[1], g[2] + v[2], g[3] + v[3], v[4],
+                o[0], o[1]);
   }
 };
 
 template <typename T>
 cudaError_t run(const void* h_prev, const void* x_pad, const void* c_prev,
                 const void* s_term, const void* wt, void* h_out, void* c_out,
-                int B, int H, int W, int C, int Cx, cudaStream_t stream) {
+                float* ws, long long ws_floats, int B, int H, int W, int C,
+                int Cx, int mma, int wm, int wj, int per_sm,
+                const rsis::CellPlan& p, cudaStream_t stream) {
   LstmForward<T> epi{static_cast<const T*>(c_prev),
                      static_cast<const T*>(s_term), static_cast<T*>(h_out),
                      static_cast<T*>(c_out), C, W};
-  return rsis::launch_cell<T>(h_prev, x_pad, wt, B, H, W, C, Cx, stream, epi);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (mma)
+      return rsis::launch_cell_staged(h_prev, x_pad, wt, ws, ws_floats, B, H,
+                                      W, C, Cx, wm, wj, per_sm, p, stream,
+                                      epi);
+  }
+  if (mma) return cudaErrorInvalidValue;
+  return rsis::launch_cell_fma_loop<T, rsis::RowMajorLayout>(
+      h_prev, x_pad, wt, B, H, W, C, Cx, stream, epi);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (every tensor in the same dtype).
-// Returns the launch's cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (every tensor in the same dtype). The
+// plan (cell_plan): mma = 0 runs the FMA loop (the other fields unused);
+// mma = 1 the staged tensor-core loop (bfloat16, C, Cx and W multiples of
+// 8) with warp tiles of wm m-tiles x wj channel blocks, warps_m x warps_n
+// warps, units of rows x tw pixels, K-chunks of cc channels in a ring of
+// `stages`, `splits` parts of the chunks (ws then holds at least splits *
+// B * H * 4C * W floats), `groups` blocks of units and per_sm blocks an
+// SM (2 only with wm * wj <= 4). Returns the first
+// failing launch's cudaError_t (0 on success); cudaErrorInvalidValue for a
+// plan or operands that do not fit.
 extern "C" int rsis_fused_cell(const void* h_prev, const void* x_pad,
                                const void* c_prev, const void* s_term,
                                const void* wt, void* h_out, void* c_out,
-                               int B, int H, int W, int C, int Cx, int dtype,
+                               void* ws, long long ws_floats, int B, int H,
+                               int W, int C, int Cx, int dtype, int mma,
+                               int wm, int wj, int warps_m, int warps_n,
+                               int rows, int tw, int cc, int stages,
+                               int splits, int groups, int per_sm,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const rsis::CellPlan p{warps_m, warps_n, rows, tw, cc, stages, splits,
+                         groups};
+  float* wsp = static_cast<float*>(ws);
   if (dtype == 0)
-    return (int)run<float>(h_prev, x_pad, c_prev, s_term, wt, h_out, c_out, B,
-                           H, W, C, Cx, s);
+    return (int)run<float>(h_prev, x_pad, c_prev, s_term, wt, h_out, c_out,
+                           wsp, ws_floats, B, H, W, C, Cx, mma, wm, wj,
+                           per_sm, p, s);
   if (dtype == 1)
     return (int)run<__nv_bfloat16>(h_prev, x_pad, c_prev, s_term, wt, h_out,
-                                   c_out, B, H, W, C, Cx, s);
+                                   c_out, wsp, ws_floats, B, H, W, C, Cx, mma,
+                                   wm, wj, per_sm, p, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_cell import _DTYPE_CODES
+from .fused_cell import (SM_COUNT, SMEM_LIMIT, _DTYPE_CODES,
+                         _divisor_at_most, _unit_shape)
 
 
 def conv3x3_rowmajor_ref(x: torch.Tensor, wt: torch.Tensor, *, cin: int,
@@ -45,10 +46,6 @@ def conv3x3_pullback_ref(dg: torch.Tensor, wpack: torch.Tensor, *, cx: int,
     return dx_pad, out[:, :, cx:].contiguous()
 
 
-# The card the tensor-core plan is sized for: an H100's SMs and the shared
-# memory one block may take (csrc/conv3x3.cu checks the latter again).
-SM_COUNT = 132
-SMEM_LIMIT = 227 * 1024
 # The kernel's instantiations: m-tiles of 16 pixels and n-tiles of 8
 # output channels a warp.
 WARP_M_TILES = (4, 2, 1)
@@ -105,27 +102,6 @@ class Conv3x3Plan:
 
     def workspace_floats(self, b: int, h: int, w: int, cout: int) -> int:
         return self.splits * b * h * cout * w if self.splits > 1 else 0
-
-
-def _unit_shape(pixels: int, h: int, w: int) -> tuple[int, int]:
-    """(rows, tw) of a unit of ``pixels``: tw a power of two from 16 up to
-    W rounded up to 16; the fewest input bytes staged per useful output
-    pixel (halo rows and the 8-column edges, padding past the image), then
-    the widest."""
-    best = None
-    tw = 16
-    while tw <= min(pixels, -(-w // 16) * 16):
-        rows = pixels // tw
-        pad = (-(-h // rows) * rows / h) * (-(-w // tw) * tw / w)
-        staged = (rows + 2) / rows * (tw + 16) / tw * pad
-        if best is None or (staged, -tw) < best[0]:
-            best = ((staged, -tw), (rows, tw))
-        tw *= 2
-    return best[1]
-
-
-def _divisor_at_most(n: int, cap: int) -> int:
-    return max(d for d in range(1, n + 1) if n % d == 0 and d <= max(cap, 1))
 
 
 def conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int,

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 
 from . import _build
 from .conv3x3 import conv3x3_pullback
-from .fused_cell import _DTYPE_CODES, _check, fused_cell_rowmajor, gates_ref
+from .fused_cell import (_DTYPE_CODES, _check, cell_plan, fused_cell_rowmajor,
+                         gates_ref, plan_args, workspace)
 
 
 # ---- K4: gate recompute and gate cotangents ------------------------------
@@ -69,8 +70,9 @@ def cell_backward_dgates_ref(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *,
 @functools.lru_cache(maxsize=None)
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("cell_bwd")
-    lib.rsis_cell_bwd.argtypes = ([ctypes.c_void_p] * 9
-                                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.rsis_cell_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 18
+        + [ctypes.c_void_p])
     lib.rsis_cell_bwd.restype = ctypes.c_int
     return lib
 
@@ -92,7 +94,8 @@ def cell_backward_dgates(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *,
     the input dtype.
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16,
-    contiguous) launch ``csrc/cell_bwd.cu`` and count one launch in
+    contiguous) launch ``csrc/cell_bwd.cu`` as ``cell_plan(...,
+    backward=True)`` cuts it and count one launch in
     ``cell_backward_dgates.launches``."""
     _check(h_prev, x_pad, c_prev, s_term, wt, cx, ch)
     for t in (dh, dc):
@@ -109,15 +112,19 @@ def cell_backward_dgates(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *,
                      (h_prev, x_pad, c_prev, s_term, wt, dh, dc),
                      h_prev.dtype)
     b, h, _, w = h_prev.shape
+    plan = cell_plan(b, h, w, ch, cx, h_prev.dtype, backward=True)
     dg = torch.empty_like(s_term)
     dc_prev = torch.empty_like(h_prev)
+    ws = workspace(plan, h_prev)
     with torch.cuda.device(h_prev.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib().rsis_cell_bwd(
             h_prev.data_ptr(), None if x_pad is None else x_pad.data_ptr(),
             c_prev.data_ptr(), s_term.data_ptr(), wt.data_ptr(),
             dh.data_ptr(), dc.data_ptr(), dg.data_ptr(), dc_prev.data_ptr(),
-            b, h, w, ch, cx, _DTYPE_CODES[h_prev.dtype], stream)
+            None if ws is None else ws.data_ptr(),
+            0 if ws is None else ws.numel(), b, h, w, ch, cx,
+            _DTYPE_CODES[h_prev.dtype], *plan_args(plan), stream)
     if err != 0:
         raise RuntimeError(f"cell backward kernel launch failed: CUDA error "
                            f"{err}")
