@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """K1 (the fused decode cell), K4 (the cell backward), K5 (the weight
-gradient), K3 (the pullback conv) and K8 (the NCHW ConvLSTM step) per cell
-and the bench-geometry train step, timed on one GPU, for comparing two
-trees of the port in one call.
+gradient), K3 (the pullback conv) and K8 (the NCHW ConvLSTM step) per cell,
+the bench-geometry mul forward and train step, timed on one GPU, for
+comparing two trees of the port in one call.
 
 Runs the ``rsis_tpu_torch`` package beside it (run a copy of this script
 from the root of another tree to time that tree), with ``chip_smoke.py``'s
@@ -30,11 +30,16 @@ inputs, timers and bounds:
   cuDNN's gate convolution alone (``F.conv2d`` of the NCHW concat of x
   and h_prev: a yardstick for the GEMM part, not the cell's function),
   and the error against the plain version;
-- --cell-sweep: every tensor-core plan of K1 and K4 at those cells and
-  batches (``cell_plan`` replaced for the call), each checked against the
-  plain version, the fastest beside the chosen one;
 - --k8: ``clstm_step`` (K8) at the mul decode's five cells (512x1024) for
-  each --k1-batch: device ms, plain ms and bound;
+  each --k1-batch, timed as --k1 (cuDNN's gate conv of the NCHW concat of
+  x and h_prev beside it);
+- --cell-sweep [k1 k4 k8]: every tensor-core plan of the named kernels
+  (all without a name) at those cells and batches (``cell_plan`` replaced
+  for the call), each checked against the plain version, the fastest
+  beside the chosen one;
+- --mul: the mul-skip forward at --batch, --steps (512x1024, bf16, K8
+  in every cell; chip_smoke.py's phase 3b): ms a forward, images per
+  second;
 - --step: the train step at --batch, --steps (resnet101, device
   augmentation on, bf16): a warm-up step, then --iters steps each timed
   by the host clock around a synchronised step; with --profile, device
@@ -42,10 +47,11 @@ inputs, timers and bounds:
   name and their shares, and PyTorch's copy kernels (direct_copy).
 
 Prints one JSON object as its last line (and writes it to --out).
-Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8] [--cell-sweep]
+Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8]
+                               [--cell-sweep [k1 k4 k8]]
                                [--k1-batch 32 4] [--k4-batch 32 8]
                                [--k5] [--k3] [--k5-batch 32 8] [--sweep]
-                               [--k3-sweep] [--step] [--batch 32]
+                               [--k3-sweep] [--mul] [--step] [--batch 32]
                                [--steps 20] [--iters 5] [--profile]
                                [--seed 0] [--out FILE]
 Exits non-zero without a CUDA device.
@@ -309,57 +315,81 @@ def sweep_k3(cs, b: int, gen, top: int = 5) -> dict:
 FWD_HW = (512, 1024)   # the decode bench's input
 
 
-def _cells(hw):
-    """(cell, (H, W, C, Cx)) of the decode's five cells at input hw."""
+def _cells(cs, kind):
+    """(cell, (H, W, C, Cx)) of the five cells of K1 (the forward at
+    512x1024), K4 (the train step at cs.TRAIN_HW) or K8 (the mul decode at
+    512x1024, whose cell 0 reads the coarsest skip)."""
     from rsis_tpu_torch.models.decoder import decoder_widths
     widths = decoder_widths(128)
+    if kind == "k8":
+        for i, (hh, ww, cx, ch) in enumerate(cs.mul_geoms(*FWD_HW, widths)):
+            yield i, (hh, ww, ch, cx)
+        return
+    hw = FWD_HW if kind == "k1" else cs.TRAIN_HW
     for i, ch in enumerate(widths):
         yield i, (hw[0] // 2 ** (5 - i), hw[1] // 2 ** (5 - i), ch,
                   widths[i - 1] if i else 0)
 
 
-def _cell_fns(kind):
-    """(kernel, plain version, backward) of K1 or K4, each taking the
-    operands of chip_smoke.bwd_inputs."""
+# cell_plan's kind of each kernel
+PLAN_KIND = {"k1": "forward", "k4": "backward", "k8": "step"}
+
+
+def _cell_case(cs, kind, geom, b, gen):
+    """Operands of K1, K4 or K8 at one cell (H, W, C, Cx), the kernel and
+    its plain version as functions of none, and cuDNN's gate convolution
+    alone (``F.conv2d`` of the NCHW concat of x and h_prev: a yardstick for
+    the GEMM part, not the cell's function), and the tensors each reads."""
+    F = torch.nn.functional
+    from rsis_tpu_torch.ops import clstm_step as k8
     from rsis_tpu_torch.ops import fused_cell as fc
     from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    hh, ww, ch, cx = geom
+    if kind == "k8":
+        ops = cs.clstm_inputs((hh, ww, cx, ch), b, torch.bfloat16, gen)
+        xh = torch.cat(ops[:2], dim=1)
+        return (lambda: k8.clstm_step(*ops), lambda: k8.clstm_step_ref(*ops),
+                lambda: F.conv2d(xh, ops[3], padding=1), ops)
+    ops, cot = cs.bwd_inputs(geom, b, torch.bfloat16, gen)
+    kw = {"cx": cx, "ch": ch}
+    xh = torch.cat([t.permute(0, 2, 1, 3).contiguous() for t in
+                    ([ops[1][:, 1:-1, :, 1:-1]] if cx else []) + [ops[0]]],
+                   dim=1)
+    wt = ops[4]
+    w_conv = torch.cat(
+        ([wt[:, :9 * cx].reshape(4 * ch, 3, 3, cx)] if cx else [])
+        + [wt[:, 9 * cx:].reshape(4 * ch, 3, 3, ch)], dim=3).permute(
+            0, 3, 1, 2).contiguous()
+
+    def gate_conv():
+        return F.conv2d(xh, w_conv, padding=1)
     if kind == "k1":
-        return (lambda ops, cot, kw: fc.fused_cell_rowmajor(*ops, **kw),
-                lambda ops, cot, kw: fc.fused_cell_rowmajor_ref(*ops, **kw),
-                False)
-    return (lambda ops, cot, kw: fcv.cell_backward_dgates(*ops, *cot, **kw),
-            lambda ops, cot, kw: fcv.cell_backward_dgates_ref(*ops, *cot,
-                                                              **kw),
-            True)
+        return (lambda: fc.fused_cell_rowmajor(*ops, **kw),
+                lambda: fc.fused_cell_rowmajor_ref(*ops, **kw), gate_conv,
+                [t for t in ops if t is not None])
+    return (lambda: fcv.cell_backward_dgates(*ops, *cot, **kw),
+            lambda: fcv.cell_backward_dgates_ref(*ops, *cot, **kw),
+            gate_conv, [t for t in ops if t is not None] + list(cot))
 
 
 def time_cell(cs, kind: str, b: int, gen) -> list:
-    """K1 (kind "k1", forward cells) or K4 ("k4", train cells) per cell."""
-    F = torch.nn.functional
-    kern, plain, _ = _cell_fns(kind)
-    hw = FWD_HW if kind == "k1" else cs.TRAIN_HW
+    """K1 (kind "k1", forward cells), K4 ("k4", train cells) or K8 ("k8",
+    mul cells) per cell: device ms of one launch, its bound, the plain
+    version's ms, cuDNN's gate conv alone and the error against the plain
+    version."""
     rows = []
-    for i, (hh, ww, ch, cx) in _cells(hw):
-        ops, cot = cs.bwd_inputs((hh, ww, ch, cx), b, torch.bfloat16, gen)
-        kw = {"cx": cx, "ch": ch}
-        got = kern(ops, cot, kw)
-        want = plain(ops, cot, kw)
+    for i, geom in _cells(cs, kind):
+        hh, ww, ch, cx = geom
+        kern, plain, gate_conv, inputs = _cell_case(cs, kind, geom, b, gen)
+        got = kern()
+        want = plain()
         err = max(cs.max_err(g, w) / (cs.BF16_ULP
                                       * w.float().abs().max().item())
                   for g, w in zip(got, want))
-        ms = cs.graph_ms(lambda: kern(ops, cot, kw), iters=20)
-        pms = cs.graph_ms(lambda: plain(ops, cot, kw), iters=5)
-        xh = torch.cat([t.permute(0, 2, 1, 3).contiguous() for t in
-                        ([ops[1][:, 1:-1, :, 1:-1]] if cx else [])
-                        + [ops[0]]], dim=1)
-        wt = ops[4]
-        w_conv = torch.cat(
-            ([wt[:, :9 * cx].reshape(4 * ch, 3, 3, cx)] if cx else [])
-            + [wt[:, 9 * cx:].reshape(4 * ch, 3, 3, ch)], dim=3).permute(
-                0, 3, 1, 2).contiguous()
-        gms = cs.graph_ms(lambda: F.conv2d(xh, w_conv, padding=1), iters=20)
-        outs = got if isinstance(got, tuple) else (got,)
-        n_b = cs.nbytes(*ops, *(cot if kind == "k4" else ()), *outs)
+        ms = cs.graph_ms(kern, iters=20)
+        pms = cs.graph_ms(plain, iters=5)
+        gms = cs.graph_ms(gate_conv, iters=20)
+        n_b = cs.nbytes(*inputs, *got)
         bms, by = cs.bound_ms(n_b,
                               2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww,
                               torch.bfloat16)
@@ -377,13 +407,13 @@ def time_cell(cs, kind: str, b: int, gen) -> list:
     return rows
 
 
-def _cell_plans(b, h, w, ch, cx, backward):
-    """Every tensor-core plan of K1 or K4 for one cell that the kernel
-    takes and whose shared memory fits: warp tiles, 4-8 warps, channel
-    tiles, the unit shape of _unit_shape and whole rows (tw up to W),
-    chunks, rings, and the most
-    parts where the units leave SMs idle (else one wave of groups, at one
-    block an SM and, where per_sm allows, two)."""
+def _cell_plans(b, h, w, ch, cx, kind):
+    """Every tensor-core plan of K1, K4 or K8 (cell_plan's kind) for one
+    cell that the kernel takes and whose shared memory fits: warp tiles,
+    4-8 warps, channel tiles, the unit shape of _unit_shape and whole rows
+    (tw up to W), chunks, rings, and the most parts where the units leave
+    SMs idle (else one wave of groups, at one block an SM and, where
+    per_sm allows, two)."""
     import itertools
     from rsis_tpu_torch.ops import fused_cell as fc
     ccs = [c for c in fc.CELL_CHUNKS if ch % c == 0 and cx % c == 0]
@@ -402,43 +432,44 @@ def _cell_plans(b, h, w, ch, cx, backward):
                 continue
             plan = fc.CellPlan(True, wm, wj, wpm, wpn, rows, tw, cc, st)
             units, n_ct = plan.units(b, h, w), ch // ct
-            if plan.smem_bytes(ch, cx, backward) > fc.SMEM_LIMIT:
+            if plan.smem_bytes(ch, cx, kind) > fc.SMEM_LIMIT:
                 continue
             if units * n_ct < fc.SM_COUNT:
                 yield dataclasses.replace(
                     plan, groups=units, splits=fc._divisor_at_most(
                         plan.chunks(ch, cx), fc.SM_COUNT // (units * n_ct)))
                 continue
-            for per_sm in (1, 2) if plan.two_per_sm(ch, cx, backward) \
-                    else (1,):
+            for per_sm in (1, 2) if plan.two_per_sm(ch, cx, kind) else (1,):
                 yield dataclasses.replace(plan, per_sm=per_sm, groups=min(
                     units, max(1, per_sm * fc.SM_COUNT // n_ct)))
 
 
 def sweep_cell(cs, kind: str, b: int, gen, top: int = 5) -> dict:
-    """Every tensor-core plan of K1 or K4 at its five cells, timed like
-    time_cell and checked against the plain version (one bf16 ulp of each
-    output's max); returns each cell's fastest plans beside the one
+    """Every tensor-core plan of K1, K4 or K8 at its five cells, timed
+    like time_cell and checked against the plain version (one bf16 ulp of
+    each output's max); returns each cell's fastest plans beside the one
     cell_plan chooses."""
+    from rsis_tpu_torch.ops import clstm_step as k8
     from rsis_tpu_torch.ops import fused_cell as fc
     from rsis_tpu_torch.ops import fused_cell_vjp as fcv
     chosen = fc.cell_plan
-    kern, plain, backward = _cell_fns(kind)
-    hw = FWD_HW if kind == "k1" else cs.TRAIN_HW
+    # each wrapper reads cell_plan from its own module's namespace
+    modules = (fc, fcv, k8)
     out = {}
-    for i, (hh, ww, ch, cx) in _cells(hw):
-        ops, cot = cs.bwd_inputs((hh, ww, ch, cx), b, torch.bfloat16, gen)
-        kw = {"cx": cx, "ch": ch}
-        want = plain(ops, cot, kw)
+    for i, geom in _cells(cs, kind):
+        hh, ww, ch, cx = geom
+        kern, plain, _, _ = _cell_case(cs, kind, geom, b, gen)
+        want = plain()
         rows = []
-        for plan in _cell_plans(b, hh, ww, ch, cx, backward):
-            # K1's wrapper reads fused_cell.cell_plan, K4's its own import
-            fc.cell_plan = fcv.cell_plan = lambda *a, plan=plan, **k: plan
+        for plan in _cell_plans(b, hh, ww, ch, cx, PLAN_KIND[kind]):
+            for m in modules:
+                m.cell_plan = lambda *a, plan=plan, **k: plan
             try:
-                got = kern(ops, cot, kw)
-                ms = cs.graph_ms(lambda: kern(ops, cot, kw), iters=10)
+                got = kern()
+                ms = cs.graph_ms(kern, iters=10)
             finally:
-                fc.cell_plan = fcv.cell_plan = chosen
+                for m in modules:
+                    m.cell_plan = chosen
             for g, w in zip(got, want):
                 err = cs.max_err(g, w)
                 tol = cs.BF16_ULP * w.float().abs().max().item()
@@ -448,7 +479,7 @@ def sweep_cell(cs, kind: str, b: int, gen, top: int = 5) -> dict:
             rows.append((ms, dataclasses.astuple(plan)))
         rows.sort()
         mine = dataclasses.astuple(chosen(b, hh, ww, ch, cx, torch.bfloat16,
-                                          backward=backward))
+                                          kind=PLAN_KIND[kind]))
         mine_ms = [ms for ms, p in rows if p == mine]
         out[i] = {"chosen": mine, "chosen_ms": mine_ms[0] if mine_ms
                   else None, "best": rows[:top], "plans": len(rows)}
@@ -459,13 +490,18 @@ def sweep_cell(cs, kind: str, b: int, gen, top: int = 5) -> dict:
     return out
 
 
-def time_k8(cs, b: int, gen) -> dict:
-    """K8 at the mul decode's five cells (chip_smoke.time_clstm)."""
-    from rsis_tpu_torch.models.decoder import decoder_widths
-    out = cs.time_clstm(cs.mul_geoms(*FWD_HW, decoder_widths(128)), b, gen)
-    print(f"K8 B={b}: {out['ms']:.4f} ms a decode step (plain "
-          f"{out['plain_ms']:.4f}, bound {out['bound_ms']:.4f})", flush=True)
-    return out
+def time_mul(cs, args) -> dict:
+    """The mul-skip forward at --batch, --steps (chip_smoke's phase 3b:
+    resnet101, hidden 128, 512x1024, bf16, every cell one K8 launch,
+    the outputs held against the plain path): ms a forward by CUDA events
+    around whole calls, and images per second."""
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    xs = [torch.randn(args.batch, *FWD_HW, 3, generator=gen, device="cuda")]
+    out = cs.mul_forward_phase(argparse.Namespace(
+        steps=args.steps, seed=args.seed, profile=False), xs)
+    return {"batch": args.batch, "steps": args.steps,
+            "forward_ms": out["forward_ms"],
+            "images_per_s": out["images_per_s"]}
 
 
 def time_step(cs, args) -> dict:
@@ -550,9 +586,11 @@ def main() -> int:
     ap.add_argument("--k1", action="store_true")
     ap.add_argument("--k4", action="store_true")
     ap.add_argument("--k8", action="store_true")
-    ap.add_argument("--cell-sweep", action="store_true",
-                    help="time every tensor-core plan of K1 (at each "
-                    "--k1-batch) and K4 (at each --k4-batch) per cell")
+    ap.add_argument("--cell-sweep", nargs="*", choices=("k1", "k4", "k8"),
+                    default=None,
+                    help="time every tensor-core plan of the named kernels "
+                    "(all without a name) per cell: K1 and K8 at each "
+                    "--k1-batch, K4 at each --k4-batch")
     ap.add_argument("--k1-batch", type=int, nargs="+", default=[32, 4])
     ap.add_argument("--k4-batch", type=int, nargs="+", default=[32, 8])
     ap.add_argument("--k5", action="store_true")
@@ -564,6 +602,7 @@ def main() -> int:
     ap.add_argument("--k3-sweep", action="store_true",
                     help="time every tensor-core plan of K3 per cell at "
                     "each --k5-batch")
+    ap.add_argument("--mul", action="store_true")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=20)
@@ -587,12 +626,14 @@ def main() -> int:
         result["k1"] = {b: time_cell(cs, "k1", b, gen) for b in args.k1_batch}
     if args.k4:
         result["k4"] = {b: time_cell(cs, "k4", b, gen) for b in args.k4_batch}
-    if args.cell_sweep:
-        result["cell_sweep"] = {
-            "k1": {b: sweep_cell(cs, "k1", b, gen) for b in args.k1_batch},
-            "k4": {b: sweep_cell(cs, "k4", b, gen) for b in args.k4_batch}}
     if args.k8:
-        result["k8"] = {b: time_k8(cs, b, gen) for b in args.k1_batch}
+        result["k8"] = {b: time_cell(cs, "k8", b, gen)
+                        for b in args.k1_batch}
+    if args.cell_sweep is not None:
+        result["cell_sweep"] = {
+            kind: {b: sweep_cell(cs, kind, b, gen) for b in (
+                args.k4_batch if kind == "k4" else args.k1_batch)}
+            for kind in args.cell_sweep or ("k1", "k4", "k8")}
     if args.k5:
         result["k5"] = {b: time_k5(cs, b, gen) for b in args.k5_batch}
     if args.sweep:
@@ -602,6 +643,8 @@ def main() -> int:
     if args.k3_sweep:
         result["k3_sweep"] = {b: sweep_k3(cs, b, gen)
                               for b in args.k5_batch}
+    if args.mul:
+        result["mul"] = time_mul(cs, args)
     if args.step:
         result["step"] = time_step(cs, args)
     line = json.dumps(result)

@@ -10,7 +10,9 @@ Phases, each fatal on failure:
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, in float32 (TF32 off) and bfloat16:
      the forward kernels K1 and K2 at the inference geometry, the
-     ConvLSTM step K8 at the mul decode's five cells and an odd H, the
+     ConvLSTM step K8 at the mul decode's five cells at B=32 and 4 and at
+     edge shapes of its launch plan (twice on the same inputs with
+     bit-identical results), the
      backward kernels K4, K5 and K3 at the train step's five cells (K1,
      K4, K5 and K3 also at edge shapes of their launch plans, and twice
      on the same inputs with bit-identical results; K3 also at B = 8 and
@@ -123,6 +125,15 @@ K1_EDGE_GEOMS = [((1, 8, 8, 0), 1), ((9, 40, 8, 16), 2),
                  ((3, 24, 32, 8), 1), ((1, 8, 64, 0), 1),
                  ((17, 136, 64, 0), 2), ((17, 136, 32, 0), 3),
                  ((2, 136, 64, 8), 1), ((17, 40, 32, 8), 3)]
+# K8's edge shapes ((H, W, Cx, C), B): each warp tile, ring depth, chunk
+# width (C = 8: the narrow chunk), channel tiling and split of
+# cell_plan(..., kind="step"), the weight chunk resident and streamed,
+# two blocks an SM, H and W off the unit, W below one unit, B=1, odd H
+# (the JAX kernel rejects odd H)
+K8_EDGE_GEOMS = [((1, 8, 8, 8), 1), ((17, 40, 16, 8), 2),
+                 ((3, 24, 8, 32), 1), ((1, 8, 64, 64), 1),
+                 ((17, 136, 64, 64), 2), ((17, 136, 32, 32), 3),
+                 ((17, 40, 8, 32), 3), ((129, 264, 16, 8), 2)]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
@@ -333,11 +344,12 @@ def tol_for(dtype, want, fp32_tol=FP32_TOL) -> float:
     return BF16_ULP * want.float().abs().max().item()
 
 
-def cell_plan_tag(geom, b, dtype, backward=False) -> str:
-    """K1's or K4's launch plan at one geometry, for the check lines."""
+def cell_plan_tag(geom, b, dtype, kind="forward") -> str:
+    """K1's, K4's or K8's launch plan (cell_plan's kind) at one geometry
+    (H, W, C, Cx), for the check lines."""
     from rsis_tpu_torch.ops.fused_cell import cell_plan
     hh, ww, ch, cx = geom
-    p = cell_plan(b, hh, ww, ch, cx, dtype, backward=backward)
+    p = cell_plan(b, hh, ww, ch, cx, dtype, kind=kind)
     if not p.mma:
         return "(fma)"
     return (f"(mma, {16 * p.wm}x{8 * p.wj}x4 warp tile, {p.rows}x{p.tw} "
@@ -358,17 +370,17 @@ def check_cell_kernels(geom, b, dtype, gen, label="") -> dict:
     tag = "fp32" if dtype == torch.float32 else "bf16"
     ops, (dh, dc) = bwd_inputs(geom, b, dtype, gen)
     errs = {"k1": 0.0, "k4": 0.0}
-    for key, name, fn, ref, args, backward in (
+    for key, name, fn, ref, args, kind in (
             ("k1", "K1", fused_cell_rowmajor, fused_cell_rowmajor_ref, ops,
-             False),
+             "forward"),
             ("k4", "K4", fcv.cell_backward_dgates,
-             fcv.cell_backward_dgates_ref, (*ops, dh, dc), True)):
+             fcv.cell_backward_dgates_ref, (*ops, dh, dc), "backward")):
         got = fn(*args, **kw)
         again = fn(*args, **kw)
         want = ref(*args, **kw)
         torch.cuda.synchronize()
         full = (f"{name} {label}{geom} B={b} {tag} "
-                + cell_plan_tag(geom, b, dtype, backward))
+                + cell_plan_tag(geom, b, dtype, kind))
         nms = ("h", "c") if key == "k1" else ("dg", "dc_prev")
         for nm, g_, a_, w_ in zip(nms, got, again, want):
             err = max_err(g_, w_)
@@ -405,7 +417,7 @@ def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
                 again = fcv.cell_backward_dgates(*ops, dh, dc, **kw)
                 torch.cuda.synchronize()
                 name = f"K4 {geom} B={bb} {tag} " + cell_plan_tag(
-                    geom, bb, dtype, backward=True)
+                    geom, bb, dtype, kind="backward")
                 for nm, g_, a_, w_ in zip(("dg", "dc_prev"), got, again,
                                           want):
                     err = max_err(g_, w_)
@@ -1124,24 +1136,34 @@ def clstm_inputs(geom, b, dtype, gen):
             bias)
 
 
-def check_clstm(geoms, b, gen) -> float:
-    """K8 against its plain version at the mul decode's five cells and at
-    an odd H (the JAX kernel rejects odd H): fp32 (TF32 off) within
-    FP32_TOL, bf16 within one bf16 ulp of max|ref| on h and on c. Returns
-    the worst bf16 error."""
+def check_clstm(geoms, batches, gen) -> float:
+    """K8 against its plain version at the mul decode's five cells at each
+    of batches, at K8_EDGE_GEOMS and at a W that is not a multiple of 8
+    (the FMA loop in bf16 too): fp32 (TF32 off) within FP32_TOL, bf16
+    within one bf16 ulp of max|ref| on h and on c; each launched twice on
+    the same inputs with bit-identical results. Returns the worst bf16
+    error."""
     from rsis_tpu_torch.ops.clstm_step import clstm_step, clstm_step_ref
     worst = 0.0
-    cases = [(g, b) for g in geoms] + [((17, 40, 16, 8), 2)]
+    cases = ([(g, bb) for bb in batches for g in geoms] + K8_EDGE_GEOMS
+             + [((9, 20, 16, 8), 2)])
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         for geom, bb in cases:
             ops = clstm_inputs(geom, bb, dtype, gen)
             got = clstm_step(*ops)
+            again = clstm_step(*ops)
             want = clstm_step_ref(*ops)
             torch.cuda.synchronize()
-            for nm, g, w in zip(("h", "c"), got, want):
+            hh, ww, cx, ch = geom
+            name = (f"K8 {geom} B={bb} {tag} "
+                    + cell_plan_tag((hh, ww, ch, cx), bb, dtype, kind="step"))
+            for nm, g, a, w in zip(("h", "c"), got, again, want):
                 err = max_err(g, w)
-                check(f"K8 {geom} B={bb} {tag} {nm}", err, tol_for(dtype, w))
+                check(f"{name} {nm}", err, tol_for(dtype, w))
+                if not torch.equal(g, a):
+                    raise SystemExit(f"{name} {nm}: two launches on the "
+                                     f"same inputs differ")
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
     return worst
@@ -1617,7 +1639,7 @@ def main() -> int:
         check(f"K2 head {head_shape} {tag}", err, tol)
         if dtype == torch.bfloat16:
             k2_err = err
-    k8_err = check_clstm(k8_geoms, b, gen)
+    k8_err = check_clstm(k8_geoms, sorted({32, 4, b}, reverse=True), gen)
     log(f"backward kernel checks at the train step's shapes, B={tb}:")
     bwd_err = check_backward_kernels(train_geoms, tb, gen,
                                      k3_batches=sorted({b, 8, 32}))

@@ -13,15 +13,15 @@
 // (tap-major, channel-minor), then the 9 h taps. Cx == 0 (cell 0) means
 // there is no x input. The epilogue receives, for each (row = b * H + y,
 // channel c, column x), the four gate sums i, f, o, g (without S) and does
-// whatever the kernel is for: the LSTM update (forward) or the gate
-// cotangents (backward). Both kernels therefore compute the same gate sums
-// in the same order.
+// whatever the kernel is for: the LSTM update (forward; K8's with its fp32
+// bias) or the gate cotangents (backward). The kernels therefore compute
+// the same gate sums in the same order.
 //
-// Three main loops:
-//   - the staged loop (cell_staged_kernel; K1 and K4 in bf16 with C, Cx
-//     and W multiples of 8, every cell at hidden 128): a block owns a unit
-//     of rows x tw pixels and a tile of Ct hidden channels with all four
-//     of their gates; the weight streams once per unit through shared
+// Two main loops:
+//   - the staged loop (cell_staged_kernel; K1, K4 and K8 in bf16 with C,
+//     Cx and W multiples of 8, every cell at hidden 128): a block owns a
+//     unit of rows x tw pixels and a tile of Ct hidden channels with all
+//     four of their gates; the weight streams once per unit through shared
 //     memory in K-chunks of nine taps x cc channels of x or of h, beside
 //     the chunk's halo (16-byte cp.async copies into a ring, transposed
 //     once to [pixel][channel]); mma.sync m16n8k16 with fp32
@@ -29,21 +29,19 @@
 //     rows and read in fragment order by ldmatrix.trans, and its outputs
 //     leave through shared memory in 16-byte stores. The plan comes from
 //     the host (cell_plan in ops/fused_cell.py);
-//   - the NCHW tensor-core loop (cell_mma_kernel; K8 in bf16): A by
-//     ldmatrix from a channel-minor halo staged with scalar loads, B pairs
-//     from the OHWI weight, prefetched one k-step ahead;
-//   - otherwise (fp32, small widths): fp32 FMA on CUDA cores, each thread
+//   - otherwise (fp32, other widths): fp32 FMA on CUDA cores, each thread
 //     owning G channels x 4 gates x P pixels.
-// All keep the products exact in fp32 for bf16 inputs, as the plain
+// Both keep the products exact in fp32 for bf16 inputs, as the plain
 // versions do.
 //
-// Two operand layouts (the Layout template argument of the FMA and NCHW
-// loops): RowMajorLayout is the one above (the decode's kernels);
+// Two operand layouts (the Layout template argument of both loops):
+// RowMajorLayout is the one above (the decode's kernels K1 and K4);
 // NchwLayout reads an unpadded NCHW x (B, Cx, H, W) and h_prev (B, C, H,
-// W) with a zero SAME halo and the gate weight as OHWI (4C, 3, 3, Cx+C)
-// (column tap * (Cx+C) + ch of a weight row), for the ConvLSTM step of
-// clstm_step.cu. Both give the main loops the same concat-channel order
-// (x channels, then h) and the same products in the same order.
+// W) with a zero SAME halo, for the ConvLSTM step of clstm_step.cu (K8).
+// The staged loop takes the packed weight in both; the FMA loop takes
+// NchwLayout's weight as OHWI (4C, 3, 3, Cx+C) (column tap * (Cx+C) + ch
+// of a weight row). Both give the main loops the same concat-channel
+// order (x channels, then h) and the same products in the same order.
 
 #pragma once
 
@@ -262,17 +260,10 @@ cell_fma_kernel(const T* __restrict__ h_prev, const T* __restrict__ x_pad,
   }
 }
 
-// ---- bf16 tensor-core main loop --------------------------------------
+// ---- tensor-core helpers ----------------------------------------------
 //
-// The same gate sums as an implicit GEMM D[pixel, n] = sum_k A[pixel, k]
-// B[k, n] with mma.sync m16n8k16 (bf16 in, fp32 accumulate). K walks
-// groups of 8 consecutive packed columns; each group is 8 channels of one
-// tap (x or h), so A rows come from the shared-memory halo by ldmatrix and
-// B pairs straight from the packed weight (K x N column-major = wt
-// row-major). A warp owns 16 pixels and J blocks of 8 channels, i.e. 4J
-// n-tiles: one per gate for each block, so a lane ends up holding i, f, o
-// and g of the same (pixel, channel) pairs and the epilogue runs on the
-// fragments. Needs C and Cx to be multiples of 8.
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) and ldmatrix on generic
+// shared-memory pointers.
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
@@ -454,190 +445,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// Shared-memory tap halo: [R + 2 rows][tw + 2 cols][stride], channel-minor
-// bf16, x channels then h channels. stride / 8 is odd so the 8 rows of an
-// ldmatrix hit 8 different 16-byte bank groups.
-__host__ __device__ inline int mma_stride(int cn) {
-  const int units = cn / 8;
-  return 8 * (units % 2 ? units : units + 1);
-}
-
-// Table of k8 groups (x channels in xg groups of 8, then h channels in hg
-// groups, tap-major) -> halo offset of pixel 0; with wofs, also the
-// group's first weight column in an OHWI weight row: tap * (Cx + C) + chs.
-__device__ __forceinline__ void fill_group_offsets(int* goff, int xg, int hg,
-                                                   int Cx, int twp,
-                                                   int stride,
-                                                   int* wofs = nullptr) {
-  const int n_groups = 9 * (xg + hg);
-  for (int g = threadIdx.x; g < n_groups; g += blockDim.x) {
-    int tap, chs;
-    if (g < 9 * xg) {
-      tap = g / xg;
-      chs = (g % xg) * 8;
-    } else {
-      tap = (g - 9 * xg) / hg;
-      chs = Cx + ((g - 9 * xg) % hg) * 8;
-    }
-    goff[g] = ((tap / 3) * twp + tap % 3) * stride + chs;
-    if (wofs) wofs[g] = tap * (8 * (xg + hg)) + chs;
-  }
-}
-
-// One block: image b, output rows y0 .. y0 + R - 1, columns [x0, x0 + tw),
-// tw = 16 * wm; the R + 2 halo rows are staged once for the R rows.
-// Warp w: m-tile w % wm, channel blocks (w / wm) * J .. + J - 1. The
-// weight groups are found by the wofs table (OHWI columns); a B pair is
-// one 32-bit load.
-template <int J, typename Layout, typename Epi>
-__global__ void __launch_bounds__(kThreads)
-cell_mma_kernel(const __nv_bfloat16* __restrict__ h_prev,
-                const __nv_bfloat16* __restrict__ x_pad,
-                const __nv_bfloat16* __restrict__ wt, int H, int W, int C,
-                int Cx, int wm, int R, int n_tiles, Epi epi) {
-  extern __shared__ __align__(16) __nv_bfloat16 halo[];
-  const int cn = Cx + C;
-  const int stride = mma_stride(cn);
-  const int tw = 16 * wm;
-  const int twp = tw + 2;
-  const int K = 9 * cn;
-  const int n_row_groups = (H + R - 1) / R;
-  const int xt = blockIdx.x % n_tiles;
-  const int y0 = (blockIdx.x / n_tiles) % n_row_groups * R;
-  const int b = blockIdx.x / (n_tiles * n_row_groups);
-  const int x0 = xt * tw;
-
-  const int xg = Cx / 8;            // x groups per tap
-  const int hg = C / 8;             // h groups per tap
-  const int n_groups = 9 * (xg + hg);
-  int* goff = reinterpret_cast<int*>(halo + (R + 2) * twp * stride);
-  int* wofs = goff + n_groups;
-  fill_group_offsets(goff, xg, hg, Cx, twp, stride, wofs);
-  stage_halo<Layout>(h_prev, x_pad, b, y0, x0, H, W, C, Cx, twp, R + 2,
-                     [&](int dy, int ch, int col, __nv_bfloat16 v) {
-                       halo[(dy * twp + col) * stride + ch] = v;
-                     });
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int mt = warp % wm;
-  const int jb0 = (warp / wm) * J;
-
-  // this lane's ldmatrix row: pixel mt*16 + r, group half (lane >> 4)
-  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int half = lane >> 4;
-
-  // weight pair pointers: row n = q*C + (jb0+j)*8 + lane/4, column
-  // wofs[g] + 2*(lane%4)
-  const __nv_bfloat16* wrow =
-      wt + (size_t)(jb0 * 8 + (lane >> 2)) * K + 2 * (lane & 3);
-
-  // B pairs of k-step g0 (groups g0, g0 + 1); the next step's are loaded
-  // before this step's products so their L2 latency overlaps the math
-  auto load_b = [&](unsigned (&dst)[J][4][2], int g0) {
-    const bool has_g1 = g0 + 1 < n_groups;
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const __nv_bfloat16* wp = wrow + (size_t)(q * C + j * 8) * K;
-        dst[j][q][0] = *reinterpret_cast<const unsigned*>(wp + wofs[g0]);
-        dst[j][q][1] =
-            has_g1 ? *reinterpret_cast<const unsigned*>(wp + wofs[g0 + 1])
-                   : 0u;
-      }
-  };
-  for (int rr = 0; rr < R && y0 + rr < H; ++rr) {
-    float acc[J][4][4];
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][q][e] = 0.0f;
-
-    unsigned bcur[J][4][2];
-    load_b(bcur, 0);
-    const __nv_bfloat16* arow =
-        halo + (size_t)(rr * twp + mt * 16 + r) * stride;
-    for (int g0 = 0; g0 < n_groups; g0 += 2) {
-      unsigned bnext[J][4][2];
-      const bool more = g0 + 2 < n_groups;
-      if (more) load_b(bnext, g0 + 2);
-      const bool has_g1 = g0 + 1 < n_groups;
-      unsigned a[4];
-      ldmatrix_x4(a, arow + goff[(half && has_g1) ? g0 + 1 : g0]);
-      if (!has_g1) a[2] = a[3] = 0u;
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          mma_bf16(acc[j][q], a, bcur[j][q][0], bcur[j][q][1]);
-      if (more) {
-#pragma unroll
-        for (int j = 0; j < J; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            bcur[j][q][0] = bnext[j][q][0];
-            bcur[j][q][1] = bnext[j][q][1];
-          }
-      }
-    }
-
-    const size_t row = (size_t)b * H + y0 + rr;
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = (jb0 + j) * 8 + 2 * (lane & 3) + (e & 1);
-        const int x = x0 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        if (x >= W) continue;
-        epi(row, c, x, acc[j][0][e], acc[j][1][e], acc[j][2][e],
-            acc[j][3][e]);
-      }
-  }
-}
-
-// Launches the tensor-core kernel when the shapes allow it; returns
-// cudaErrorNotSupported when they do not (the caller then takes the FMA
-// kernel).
-template <int J, typename Layout, typename Epi>
-cudaError_t launch_cell_mma(const void* h_prev, const void* x_pad,
-                            const void* wt, int B, int H, int W, int C,
-                            int Cx, cudaStream_t stream, Epi epi) {
-  const int wn = C / 8 / J;        // warps along the gate channels
-  if (wn < 1 || wn > kThreads / 32) return cudaErrorNotSupported;
-  int wm = kThreads / 32 / wn;     // warps (m-tiles of 16) along W
-  const int need = (W + 15) / 16;
-  if (wm > need) wm = need;
-  const int tw = 16 * wm;
-  const int n_tiles = (W + tw - 1) / tw;
-  // rows per block: 4 while that leaves at least 2 blocks per SM (132)
-  int R = 4;
-  while (R > 1 && (long long)B * ((H + R - 1) / R) * n_tiles < 264) R /= 2;
-  size_t smem = 0;
-  while (true) {
-    smem = (size_t)(R + 2) * (tw + 2) * mma_stride(Cx + C) *
-               sizeof(__nv_bfloat16) +
-           (size_t)9 * (Cx + C) / 8 * sizeof(int) * 2;
-    if (smem <= kMaxSmem || R == 1) break;
-    R /= 2;
-  }
-  if (smem > kMaxSmem) return cudaErrorNotSupported;
-  auto kern = cell_mma_kernel<J, Layout, Epi>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * ((H + R - 1) / R) * n_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  using bf = __nv_bfloat16;
-  kern<<<(unsigned)blocks, 32 * wm * wn, smem, stream>>>(
-      static_cast<const bf*>(h_prev), static_cast<const bf*>(x_pad),
-      static_cast<const bf*>(wt), H, W, C, Cx, wm, R, n_tiles, epi);
-  return cudaGetLastError();
-}
-
 template <typename T, int G, int P, typename Layout, typename Epi>
 cudaError_t launch_cell_fma(const void* h_prev, const void* x_pad,
                             const void* wt, int B, int H, int W, int C,
@@ -684,29 +491,7 @@ cudaError_t launch_cell_fma_loop(const void* h_prev, const void* x_pad,
                                           stream, epi);
 }
 
-// The NCHW gate convolution with epilogue epi (K8): the tensor cores for
-// bf16 with C and Cx multiples of 8, the FMA loop otherwise.
-template <typename T, typename Layout, typename Epi>
-cudaError_t launch_cell(const void* h_prev, const void* x_pad, const void* wt,
-                        int B, int H, int W, int C, int Cx,
-                        cudaStream_t stream, Epi epi) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cx < 0)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorNotSupported;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (C % 8 == 0 && Cx % 8 == 0)
-      err = (C / 8) % 2 == 0
-                ? launch_cell_mma<2, Layout>(h_prev, x_pad, wt, B, H, W, C,
-                                             Cx, stream, epi)
-                : launch_cell_mma<1, Layout>(h_prev, x_pad, wt, B, H, W, C,
-                                             Cx, stream, epi);
-  }
-  if (err != cudaErrorNotSupported) return err;
-  return launch_cell_fma_loop<T, Layout>(h_prev, x_pad, wt, B, H, W, C, Cx,
-                                         stream, epi);
-}
-
-// ---- the staged loop (K1, K4) -------------------------------------------
+// ---- the staged loop (K1, K4, K8) ---------------------------------------
 //
 // The host's plan (cell_plan in ops/fused_cell.py): warps_m x warps_n
 // warps of WM m-tiles (16 pixels of one row) x J blocks of 8 hidden
@@ -717,7 +502,10 @@ cudaError_t launch_cell(const void* h_prev, const void* x_pad, const void* wt,
 // gate q); K-chunks of all nine taps x cc channels, the x channels' chunks
 // first (pack_cell_weights' order), in a ring of `stages`; the chunks cut
 // into `splits` parts and the units dealt in order to `groups` blocks per
-// (channel tile, part).
+// (channel tile, part). The Layout says where a chunk's rows come from:
+// RowMajorLayout's x_pad rows from their 16-byte boundary and h_prev's
+// (B, H, C, W) rows, or NchwLayout's x and h_prev rows (B, Cin, H, W),
+// both like h_prev's, with a zero SAME halo.
 struct CellPlan {
   int warps_m, warps_n, rows, tw, cc, stages, splits, groups;
 };
@@ -725,14 +513,15 @@ struct CellPlan {
 // Shared-memory layout of one block, in bf16 elements: the ring's raw
 // input rows, the weight slots (one when a block has one chunk: it
 // stays), the transposed halo, the epilogue's planes (none with parts),
-// 8 elements of trash for stmatrix rows past the halo, and the mbarrier
-// of the planes' copies. Every region
+// 8 elements of trash for stmatrix rows past the halo, the mbarrier of
+// the planes' copies and, for an epilogue with a bias, its `bias` fp32
+// values. Every region
 // starts 16-byte aligned; each row stride is an odd number of 16-byte
 // groups, so the 8 rows of an ldmatrix or stmatrix hit 8 bank groups.
 struct CellSmem {
-  int rs, ks, cs, twp, os, raw, wgt, wslots, halo, epi, stages;
+  int rs, ks, cs, twp, os, raw, wgt, wslots, halo, epi, stages, bias;
   __host__ __device__ CellSmem(const CellPlan& p, int ct, int cps,
-                               int planes) {
+                               int planes, int bias_floats = 0) {
     rs = p.tw + 24;   // raw row: h pixels x0 - 8 .. x0 + tw + 15
     ks = 9 * p.cc + ((9 * p.cc / 8) % 2 ? 16 : 8);   // weight row
     cs = p.cc + ((p.cc / 8) % 2 ? 0 : 8);            // halo row
@@ -744,22 +533,27 @@ struct CellSmem {
     halo = (p.rows + 2) * twp * cs;
     epi = p.splits > 1 ? 0 : planes * ct * os;
     stages = p.stages;
+    bias = bias_floats;
   }
-  // then 16 bytes for the epilogue's mbarrier
+  // then 16 bytes for the epilogue's mbarrier and the bias
   __host__ __device__ size_t bytes() const {
     return (size_t)(stages * raw + wslots * wgt + halo + epi + 8) *
                sizeof(__nv_bfloat16) +
-           16;
+           16 + (size_t)bias * sizeof(float);
   }
 };
 
 // The epilogue Epi (LstmForward in fused_cell.cu, LstmBackward in
-// cell_bwd.cu) names kIn planes of W-contiguous rows (in_row), staged per
-// unit as [plane][channel][pixel], and kOut outputs (out_row), each
-// written into plane out_plane(k) before it leaves; tile() maps the four
-// gate sums and the kIn plane values of one (pixel, channel) to the kOut
-// outputs, and operator() is the same map on device memory for one
-// (row, c, x) (the parts' sum).
+// cell_bwd.cu, LstmStep in clstm_step.cu) names kIn planes of
+// W-contiguous rows (in_row, for row = b * H + y), staged per unit as
+// [plane][channel][pixel], and kOut outputs (out_row), each written into
+// plane out_plane(k) before it leaves, so a block holds max(kIn, kOut)
+// planes; tile() maps the four gate sums and the kIn plane values of one
+// (pixel, channel) to the kOut outputs, and operator() is the same map on
+// device memory for one (row, c, x) (the parts' sum). An Epi with kBias
+// (LstmStep) has an fp32 bias of 4C values, gate-major: a block keeps its
+// tile's 4 Ct in shared memory and adds them to the gate sums before
+// tile(); operator() adds them itself.
 //
 // kBlocks: the blocks an SM holds at once, the plan's per_sm: two (a
 // thread within 128 registers) only with at most 64 accumulators a thread
@@ -768,7 +562,19 @@ struct CellSmem {
 // kNarrow: cc = 8, half of mma's k16: a k16 step pairs two taps of the
 // chunk (5 steps for 9 taps, the last half empty: 11% more products than
 // the chunk needs, at cells whose bytes bound them).
-template <int WM, int J, bool kNarrow, int kBlocks, typename Epi>
+template <typename Epi>
+__host__ __device__ constexpr int epi_planes() {
+  return Epi::kIn > Epi::kOut ? Epi::kIn : Epi::kOut;
+}
+
+template <typename Epi, typename = void>
+struct EpiBias : std::false_type {};
+template <typename Epi>
+struct EpiBias<Epi, std::void_t<decltype(Epi::kBias)>>
+    : std::integral_constant<bool, Epi::kBias> {};
+
+template <int WM, int J, bool kNarrow, int kBlocks, typename Layout,
+          typename Epi>
 __global__ void __launch_bounds__(kThreads, kBlocks)
 cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
                    const __nv_bfloat16* __restrict__ x_pad,
@@ -776,12 +582,14 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
                    float* __restrict__ ws, int B, int H, int W, int C, int Cx,
                    CellPlan p, Epi epi) {
   using bf16 = __nv_bfloat16;
+  constexpr bool kNchw = std::is_same<Layout, NchwLayout>::value;
+  constexpr bool kBias = EpiBias<Epi>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ct = 8 * J * p.warps_n;
   const int cc = p.cc;
   const int nxc = Cx / cc;                      // x chunks, then h chunks
   const int cps = (Cx + C) / cc / p.splits;     // chunks a block walks a unit
-  const CellSmem L(p, ct, cps, Epi::kIn);
+  const CellSmem L(p, ct, cps, epi_planes<Epi>(), kBias ? 4 * ct : 0);
   bf16* raw0 = reinterpret_cast<bf16*>(smem_raw);
   bf16* wgt0 = raw0 + L.stages * L.raw;
   bf16* halo = wgt0 + L.wslots * L.wgt;
@@ -808,6 +616,14 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
   const int n_my = (int)(n_units * (group + 1) / p.groups - u_begin);
   const int k_begin = split * cps;
   const int n_st = n_my * cps;   // ring stages: (unit, chunk), chunk-minor
+  // the tile's gate biases [4][Ct] after the mbarrier (read behind the
+  // main loop's first barrier; the parts' sum adds them itself)
+  float* bias_s = reinterpret_cast<float*>(trash + 16);
+  if constexpr (kBias) {
+    if (p.splits == 1)
+      for (int i = threadIdx.x; i < 4 * ct; i += blockDim.x)
+        bias_s[i] = epi.bias[i / ct * C + c0 + i % ct];
+  }
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -832,8 +648,9 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
   // cp.async of stage k into ring slot k % stages: raw[(R + 2) rows][cc]
   // [rs] holds x_pad's rows from the 16-byte boundary (tw / 8 + 1 copies,
   // past the tensor's end zero) or h's columns x0 - 8 .. x0 + tw + 7 (tw /
-  // 8 + 2 copies, zero outside the image); the weight slot [4 Ct][ks] the
-  // chunk's columns of the block's weight rows, gate-major, tap-major
+  // 8 + 2 copies, zero outside the image; NchwLayout's x rows too); the
+  // weight slot [4 Ct][ks] the chunk's columns of the block's weight rows,
+  // gate-major, tap-major
   const int qx = tw / 8 + 1;
   const int qh = tw / 8 + 2;
   const Walk w_x(threadIdx.x, blockDim.x, qx, cc);
@@ -847,7 +664,23 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
     const bool is_x = chunk < nxc;
     const int ch0 = (is_x ? chunk : chunk - nxc) * cc;
     bf16* raw = raw0 + slot * L.raw;
-    if (is_x) {
+    if constexpr (kNchw) {
+      // x (B, Cx, H, W) or h_prev (B, C, H, W)
+      const bf16* src = is_x ? x_pad : h_prev;
+      const int cin = is_x ? Cx : C;
+      Walk w = w_h;
+      for (int i = threadIdx.x; i < (R + 2) * cc * qh;
+           i += blockDim.x, w.next()) {
+        const int iy = y0 + w.c - 1;
+        const int ix = x0 - 8 + 8 * w.a;
+        const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+        cp_async16(raw + (w.c * cc + w.b) * L.rs + 8 * w.a,
+                   ok ? src + ((size_t)(b * cin + ch0 + w.b) * H + iy) * W +
+                            ix
+                      : wt,
+                   ok ? 16 : 0);
+      }
+    } else if (is_x) {
       Walk w = w_x;
       for (int i = threadIdx.x; i < (R + 2) * cc * qx;
            i += blockDim.x, w.next()) {
@@ -910,10 +743,11 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
 
   // raw (stage k) -> halo[(R + 2) rows][tw + 2 padded columns][cs] in 8x8
   // blocks (8 channels x 8 padded columns), four neighbouring column
-  // blocks a warp instruction: x rows by 32-bit loads at their phase, h
-  // rows by ldmatrix (raw column j is padded column j - 7), either way the
-  // fragment ldmatrix would give, then stmatrix.trans; rows of a block
-  // outside the padded columns go to the trash
+  // blocks a warp instruction: x_pad rows by 32-bit loads at their phase,
+  // h rows (and NchwLayout's x rows) by ldmatrix (raw column j is padded
+  // column j - 7), either way the fragment ldmatrix would give, then
+  // stmatrix.trans; rows of a block outside the padded columns go to the
+  // trash
   const int nq4 = (tw / 8 + 5) / 4;
   const int nquad = (R + 2) * (cc / 8) * nq4;
   const Walk w_t(warp, nw, nq4, cc / 8);
@@ -930,7 +764,7 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
       const int g = w.b;
       const int q = 4 * w.a + (lane >> 3);   // this lane's store block
       unsigned v[4];
-      if (!is_x) {
+      if (kNchw || !is_x) {
         ldmatrix_x4(v, raw + (r * cc + 8 * g + (lane & 7)) * L.rs + 8 * q);
       } else {
         const int c = 8 * g + (lane >> 2);
@@ -940,7 +774,7 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
         for (int m = 0; m < 4; ++m)
           v[m] = *reinterpret_cast<const unsigned*>(row + 8 * (4 * w.a + m));
       }
-      const int pc = 8 * q + (lane & 7) - (is_x ? 0 : 7);
+      const int pc = 8 * q + (lane & 7) - (is_x && !kNchw ? 0 : 7);
       stmatrix_x4_trans(pc >= 0 && pc < L.twp
                             ? halo + (r * L.twp + pc) * L.cs + 8 * g
                             : trash,
@@ -1113,8 +947,13 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
 #pragma unroll
           for (int s1 = 0; s1 < 2; ++s1) {
             const int e = 2 * hf + s1;
-            const float g[4] = {acc[i][j][0][e], acc[i][j][1][e],
-                                acc[i][j][2][e], acc[i][j][3][e]};
+            float g[4] = {acc[i][j][0][e], acc[i][j][1][e], acc[i][j][2][e],
+                          acc[i][j][3][e]};
+            if constexpr (kBias) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                g[q] += bias_s[q * ct + nw0 + 8 * j + 2 * (lane & 3) + s1];
+            }
             float ve[Epi::kIn];
 #pragma unroll
             for (int pl = 0; pl < Epi::kIn; ++pl) {
@@ -1213,16 +1052,19 @@ __global__ void cell_reduce_kernel(const float* __restrict__ ws, Epi epi,
   epi(row, c, x, g[0], g[1], g[2], g[3]);
 }
 
-template <int WM, int J, bool kNarrow, int kBlocks, typename Epi>
+template <int WM, int J, bool kNarrow, int kBlocks, typename Layout,
+          typename Epi>
 cudaError_t launch_staged(const void* h_prev, const void* x_pad,
                           const void* wt, float* ws, int B, int H, int W,
                           int C, int Cx, const CellPlan& p,
                           cudaStream_t stream, Epi epi) {
   const int ct = 8 * J * p.warps_n;
   const size_t smem =
-      CellSmem(p, ct, (Cx + C) / p.cc / p.splits, Epi::kIn).bytes();
+      CellSmem(p, ct, (Cx + C) / p.cc / p.splits, epi_planes<Epi>(),
+               EpiBias<Epi>::value ? 4 * ct : 0)
+          .bytes();
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = cell_staged_kernel<WM, J, kNarrow, kBlocks, Epi>;
+  auto kern = cell_staged_kernel<WM, J, kNarrow, kBlocks, Layout, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1240,12 +1082,12 @@ cudaError_t launch_staged(const void* h_prev, const void* x_pad,
   return cudaGetLastError();
 }
 
-// The staged loop as the plan cuts it (bf16 operands): warp tiles of wm
-// m-tiles x wj channel blocks, per_sm blocks an SM, the rest of the plan
-// in p; ws holds at least splits * B * H * 4C * W floats where splits >
-// 1. Returns cudaErrorInvalidValue for a plan or operands the kernel does
-// not take.
-template <typename Epi>
+// The staged loop as the plan cuts it (bf16 operands in Layout): warp
+// tiles of wm m-tiles x wj channel blocks, per_sm blocks an SM, the rest
+// of the plan in p; ws holds at least splits * B * H * 4C * W floats where
+// splits > 1. Returns cudaErrorInvalidValue for a plan or operands the
+// kernel does not take.
+template <typename Layout = RowMajorLayout, typename Epi>
 cudaError_t launch_cell_staged(const void* h_prev, const void* x_pad,
                                const void* wt, float* ws, long long ws_floats,
                                int B, int H, int W, int C, int Cx, int wm,
@@ -1273,8 +1115,9 @@ cudaError_t launch_cell_staged(const void* h_prev, const void* x_pad,
     return cudaErrorInvalidValue;
 #define RSIS_STAGED(WM_, J_, N_, PB_)                                        \
   if (wm == WM_ && wj == J_ && (cc == 8) == N_ && per_sm == PB_)             \
-    return launch_staged<WM_, J_, N_, PB_>(h_prev, x_pad, wt, ws, B, H, W, C, \
-                                           Cx, p, stream, epi);
+    return launch_staged<WM_, J_, N_, PB_, Layout>(h_prev, x_pad, wt, ws, B, \
+                                                   H, W, C, Cx, p, stream,   \
+                                                   epi);
   RSIS_STAGED(1, 1, false, 1) RSIS_STAGED(1, 2, false, 1)
   RSIS_STAGED(1, 4, false, 1) RSIS_STAGED(2, 1, false, 1)
   RSIS_STAGED(2, 2, false, 1) RSIS_STAGED(2, 4, false, 1)

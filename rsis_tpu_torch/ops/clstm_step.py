@@ -8,9 +8,11 @@ Pallas ``_cell_kernel``). One step is
 
 with gate order i, f, o, g, the gate sum, the bias and the update in fp32,
 and h, c stored in x's dtype. On a CUDA tensor ``clstm_step`` launches the
-hand-written kernel ``csrc/clstm_step.cu``; on a CPU tensor it runs
-``clstm_step_ref``, the plain PyTorch version of the same arithmetic.
-``fused_convlstm_step`` keeps the JAX function's NHWC/HWIO signature.
+hand-written kernel ``csrc/clstm_step.cu`` (the staged loop of the decode
+cell, cut by ``fused_cell.cell_plan(..., kind="step")``); on a CPU tensor
+it runs ``clstm_step_ref``, the plain PyTorch version of the same
+arithmetic. ``fused_convlstm_step`` keeps the JAX function's NHWC/HWIO
+signature.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .fused_cell import cell_plan, plan_args, workspace
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,7 +46,7 @@ def clstm_step_ref(x: torch.Tensor, h_prev: torch.Tensor,
 
 
 def ohwi_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The kernel's weight: the OIHW (4C, Cx+C, 3, 3) gate weight as a
+    """The FMA loop's weight: the OIHW (4C, Cx+C, 3, 3) gate weight as a
     contiguous OHWI (4C, 3, 3, Cx+C) tensor in ``dtype``, written by one
     copy that also casts."""
     out = torch.empty(weight.shape[:1] + weight.shape[2:] + weight.shape[1:2],
@@ -51,11 +54,27 @@ def ohwi_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out.copy_(weight.permute(0, 2, 3, 1))
 
 
+def packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The staged loop's weight: the OIHW (4C, Cx+C, 3, 3) gate weight as
+    ``fused_cell.pack_cell_weights`` lays it out, (4C, 9(Cx+C)) with the 9
+    x taps first (tap-major, channel-minor), then the 9 h taps, in
+    ``dtype``, written by one copy a part that also casts."""
+    g4, cin = weight.shape[:2]
+    cx = cin - g4 // 4
+    out = torch.empty(g4, 9 * cin, dtype=dtype, device=weight.device)
+    for lo, hi in ((0, cx), (cx, cin)):
+        if hi > lo:
+            out[:, 9 * lo:9 * hi].view(g4, 3, 3, hi - lo).copy_(
+                weight[:, lo:hi].permute(0, 2, 3, 1))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("clstm_step")
-    lib.rsis_clstm_step.argtypes = ([ctypes.c_void_p] * 7
-                                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.rsis_clstm_step.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 18
+        + [ctypes.c_void_p])
     lib.rsis_clstm_step.restype = ctypes.c_int
     return lib
 
@@ -95,8 +114,9 @@ def clstm_step(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
       (h, c), each (B, C, H, W) in x's dtype.
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16)
-    launch ``csrc/clstm_step.cu`` on an OHWI copy of the weight in x's
-    dtype (one copy that also casts) and count one launch in
+    launch ``csrc/clstm_step.cu`` as ``cell_plan(..., kind="step")`` cuts
+    it, on a copy of the weight in x's dtype (packed for the staged loop,
+    OHWI for the FMA loop; the copy also casts), and count one launch in
     ``clstm_step.launches``."""
     _check(x, h_prev, c_prev, weight, bias)
     if plain or x.device.type == "cpu":
@@ -108,18 +128,23 @@ def clstm_step(x: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
                         f"not {x.dtype}")
     if any(not t.is_contiguous() for t in (x, h_prev, c_prev)):
         raise ValueError("ConvLSTM step kernel needs contiguous operands")
-    w_ohwi = ohwi_weight(weight, x.dtype)
-    bias32 = bias.float().contiguous()
     b, cx, h, w = x.shape
     ch = h_prev.shape[1]
+    plan = cell_plan(b, h, w, ch, cx, x.dtype, kind="step")
+    wt = (packed_weight if plan.mma else ohwi_weight)(weight, x.dtype)
+    bias32 = bias.float().contiguous()
     h_out = torch.empty_like(h_prev)
     c_out = torch.empty_like(h_prev)
+    ws = workspace(plan, b, h, w, ch, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rsis_clstm_step(
-            x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(),
-            w_ohwi.data_ptr(), bias32.data_ptr(), h_out.data_ptr(),
-            c_out.data_ptr(), b, h, w, ch, cx, _DTYPE_CODES[x.dtype], stream)
+            x.data_ptr() if cx else None, h_prev.data_ptr(),
+            c_prev.data_ptr(), wt.data_ptr(), bias32.data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            0 if ws is None else ws.numel(), b, h, w, ch, cx,
+            _DTYPE_CODES[x.dtype], *plan_args(plan), stream)
     if err != 0:
         raise RuntimeError(f"ConvLSTM step kernel launch failed: CUDA error "
                            f"{err}")

@@ -12,7 +12,8 @@ stored in the input dtype. On a CUDA tensor ``fused_cell_rowmajor``
 launches the hand-written kernel ``csrc/fused_cell.cu`` as ``cell_plan``
 cuts it; on a CPU tensor it runs ``fused_cell_rowmajor_ref``, the plain
 PyTorch version of the same arithmetic. ``cell_plan`` also cuts the cell
-backward's kernel (``csrc/cell_bwd.cu``), which shares the main loop.
+backward's kernel (``csrc/cell_bwd.cu``) and the NCHW ConvLSTM step's
+(``csrc/clstm_step.cu``), which share the main loop.
 """
 
 from __future__ import annotations
@@ -117,12 +118,18 @@ CELL_WARP_M = (4, 2, 1)
 CELL_WARP_J = (4, 2, 1)
 CELL_CHUNKS = (64, 32, 16, 8)
 MAX_WARP_TILES = 8          # wm * wj: 16 wm wj accumulators a thread
+# The kernels on the staged loop, by the epilogue's planes a block stages
+# (max(kIn, kOut) of the kernel's epilogue): K1 "forward" (S's four gates
+# and c_prev in, h and c out), K4 "backward" (and dh, dc in; dg's gates
+# and dc_prev out), K8 "step" (c_prev in, h and c out; its fp32 gate bias
+# beside them)
+EPI_PLANES = {"forward": 5, "backward": 7, "step": 2}
 
 
 @dataclasses.dataclass(frozen=True)
 class CellPlan:
-    """How ``csrc/fused_cell.cu`` (K1) and ``csrc/cell_bwd.cu`` (K4) cut
-    one cell.
+    """How ``csrc/fused_cell.cu`` (K1), ``csrc/cell_bwd.cu`` (K4) and
+    ``csrc/clstm_step.cu`` (K8) cut one cell.
 
     mma: the staged tensor-core loop (bf16, C, Cx and W multiples of 8)
     with warp tiles of wm m-tiles (16 pixels of one row) x wj blocks of 8
@@ -166,12 +173,12 @@ class CellPlan:
     def chunks(self, ch: int, cx: int) -> int:
         return (cx + ch) // self.cc
 
-    def smem_bytes(self, ch: int, cx: int, backward: bool = False) -> int:
+    def smem_bytes(self, ch: int, cx: int, kind: str = "forward") -> int:
         """Dynamic shared memory of one block (the kernel's ``CellSmem``):
         the ring of raw input rows, the weight slots (one when a block has
-        one chunk), the transposed halo, the epilogue's planes (S's four
-        gates and c_prev, and for the backward dh and dc; none with parts),
-        16 bytes of trash and the planes' mbarrier."""
+        one chunk), the transposed halo, the epilogue's planes
+        (``EPI_PLANES[kind]``; none with parts), 16 bytes of trash, the
+        planes' mbarrier and, for K8, the tile's fp32 gate biases."""
         ks = 9 * self.cc + (16 if (9 * self.cc // 8) % 2 else 8)
         cs = self.cc + (0 if (self.cc // 8) % 2 else 8)
         raw = (self.rows + 2) * self.cc * (self.tw + 24)
@@ -179,16 +186,17 @@ class CellPlan:
         wslots = 1 if self.chunks(ch, cx) // self.splits == 1 else \
             self.stages
         halo = (self.rows + 2) * (self.tw + 2) * cs
-        planes = 7 if backward else 5
-        epi = 0 if self.splits > 1 else planes * self.block_c * (
+        epi = 0 if self.splits > 1 else EPI_PLANES[kind] * self.block_c * (
             self.pixels + 8)
-        return 2 * (self.stages * raw + wslots * wgt + halo + epi + 8) + 16
+        bias = 4 * 4 * self.block_c if kind == "step" else 0
+        return (2 * (self.stages * raw + wslots * wgt + halo + epi + 8) + 16
+                + bias)
 
-    def two_per_sm(self, ch: int, cx: int, backward: bool = False) -> bool:
+    def two_per_sm(self, ch: int, cx: int, kind: str = "forward") -> bool:
         """Whether an SM can hold two blocks at once: the warp tile keeps
         at most 64 accumulators a thread (the kernel is then built for 128
         registers) and two blocks' shared memory fits."""
-        return (self.wm * self.wj <= 4 and self.smem_bytes(ch, cx, backward)
+        return (self.wm * self.wj <= 4 and self.smem_bytes(ch, cx, kind)
                 <= SMEM_PER_SM // 2 - 1024)
 
     def staged_bytes(self) -> int:
@@ -204,9 +212,10 @@ class CellPlan:
 
 @functools.lru_cache(maxsize=None)
 def cell_plan(b: int, h: int, w: int, ch: int, cx: int, dtype: torch.dtype,
-              *, backward: bool = False) -> CellPlan:
-    """The launch plan of K1 (or, with ``backward``, K4) for h_prev (b, h,
-    ch, w) and cx x channels.
+              *, kind: str = "forward") -> CellPlan:
+    """The launch plan of K1 (``kind`` "forward"), K4 ("backward") or K8
+    ("step", the NCHW ConvLSTM step) for b images of h x w, ch hidden and
+    cx x channels.
 
     Tensor cores (bf16, ch, cx and w multiples of 8), one block of 8
     warps an SM:
@@ -248,7 +257,7 @@ def cell_plan(b: int, h: int, w: int, ch: int, cx: int, dtype: torch.dtype,
                     continue
                 plan = CellPlan(True, wm, wj, warps_m, warps_n,
                                 *_unit_shape(px, h, w), cc, 2, 1, 1)
-                if plan.smem_bytes(ch, cx, backward) > SMEM_LIMIT:
+                if plan.smem_bytes(ch, cx, kind) > SMEM_LIMIT:
                     continue
                 key = (px * ct, -plan.staged_bytes() / (px * ct * cc), wm)
                 if best is None or key > best[0]:
@@ -266,16 +275,16 @@ def cell_plan(b: int, h: int, w: int, ch: int, cx: int, dtype: torch.dtype,
     # stage where it fits
     plan = next(p for p in (dataclasses.replace(plan, cc=cc) for cc in ccs
                             if cc != 8 or plan.wj <= 2)
-                if p.smem_bytes(ch, cx, backward) <= SMEM_LIMIT)
+                if p.smem_bytes(ch, cx, kind) <= SMEM_LIMIT)
     three = dataclasses.replace(plan, stages=3)
-    if three.smem_bytes(ch, cx, backward) <= SMEM_LIMIT:
+    if three.smem_bytes(ch, cx, kind) <= SMEM_LIMIT:
         plan = three
     n_units = plan.units(b, h, w)
     if n_units * n_ct < SM_COUNT:
         splits = _divisor_at_most(plan.chunks(ch, cx),
                                   SM_COUNT // (n_units * n_ct))
         return dataclasses.replace(plan, splits=splits, groups=n_units)
-    per_sm = 2 if plan.two_per_sm(ch, cx, backward) else 1
+    per_sm = 2 if plan.two_per_sm(ch, cx, kind) else 1
     return dataclasses.replace(plan, per_sm=per_sm, groups=min(
         n_units, max(1, per_sm * SM_COUNT // n_ct)))
 
@@ -347,7 +356,7 @@ def fused_cell_rowmajor(h_prev: torch.Tensor, x_pad: torch.Tensor | None,
     plan = cell_plan(b, h, w, ch, cx, h_prev.dtype)
     h_out = torch.empty_like(h_prev)
     c_out = torch.empty_like(h_prev)
-    ws = workspace(plan, h_prev)
+    ws = workspace(plan, b, h, w, ch, h_prev.device)
     with torch.cuda.device(h_prev.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rsis_fused_cell(
@@ -374,9 +383,8 @@ def plan_args(plan: CellPlan) -> tuple:
             plan.groups, plan.per_sm)
 
 
-def workspace(plan: CellPlan, h_prev: torch.Tensor) -> torch.Tensor | None:
+def workspace(plan: CellPlan, b: int, h: int, w: int, ch: int,
+              device: torch.device) -> torch.Tensor | None:
     """The parts' fp32 partial gate sums, or None with one part."""
-    b, h, ch, w = h_prev.shape
     n = plan.workspace_floats(b, h, w, ch)
-    return (torch.empty(n, dtype=torch.float32, device=h_prev.device)
-            if n else None)
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None

@@ -95,7 +95,7 @@ def cell_backward_dgates(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *,
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16,
     contiguous) launch ``csrc/cell_bwd.cu`` as ``cell_plan(...,
-    backward=True)`` cuts it and count one launch in
+    kind="backward")`` cuts it and count one launch in
     ``cell_backward_dgates.launches``."""
     _check(h_prev, x_pad, c_prev, s_term, wt, cx, ch)
     for t in (dh, dc):
@@ -112,10 +112,10 @@ def cell_backward_dgates(h_prev, x_pad, c_prev, s_term, wt, dh, dc, *,
                      (h_prev, x_pad, c_prev, s_term, wt, dh, dc),
                      h_prev.dtype)
     b, h, _, w = h_prev.shape
-    plan = cell_plan(b, h, w, ch, cx, h_prev.dtype, backward=True)
+    plan = cell_plan(b, h, w, ch, cx, h_prev.dtype, kind="backward")
     dg = torch.empty_like(s_term)
     dc_prev = torch.empty_like(h_prev)
-    ws = workspace(plan, h_prev)
+    ws = workspace(plan, b, h, w, ch, h_prev.device)
     with torch.cuda.device(h_prev.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib().rsis_cell_bwd(

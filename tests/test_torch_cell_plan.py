@@ -38,8 +38,12 @@ TRAIN_CELLS = [(8, 16, 128, 0), (16, 32, 64, 128), (32, 64, 32, 64),
                (64, 128, 16, 32), (128, 256, 8, 16)]
 
 
-def _check_mma_plan(b, h, w, c, cx, backward):
-    plan = fc.cell_plan(b, h, w, c, cx, torch.bfloat16, backward=backward)
+def _kind(backward):
+    return "backward" if backward else "forward"
+
+
+def _check_mma_plan(b, h, w, c, cx, kind):
+    plan = fc.cell_plan(b, h, w, c, cx, torch.bfloat16, kind=kind)
     assert plan.mma
     assert plan.wm in fc.CELL_WARP_M and plan.wj in fc.CELL_WARP_J
     assert plan.wm * plan.wj <= fc.MAX_WARP_TILES
@@ -54,14 +58,14 @@ def _check_mma_plan(b, h, w, c, cx, backward):
         assert plan.wj <= 2
     assert plan.chunks(c, cx) % plan.splits == 0
     assert plan.stages in (2, 3)
-    assert plan.smem_bytes(c, cx, backward) <= fc.SMEM_LIMIT
+    assert plan.smem_bytes(c, cx, kind) <= fc.SMEM_LIMIT
     if plan.stages == 2:   # a third stage would not fit
         assert dataclasses.replace(plan, stages=3).smem_bytes(
-            c, cx, backward) > fc.SMEM_LIMIT
+            c, cx, kind) > fc.SMEM_LIMIT
     units = plan.units(b, h, w)
     assert plan.per_sm in (1, 2)
     if plan.per_sm == 2:
-        assert plan.two_per_sm(c, cx, backward) and plan.splits == 1
+        assert plan.two_per_sm(c, cx, kind) and plan.splits == 1
     per_sm = plan.per_sm
     assert 1 <= plan.groups <= min(units, per_sm * fc.SM_COUNT)
     if plan.splits > 1:    # parts only where the units leave SMs idle
@@ -76,7 +80,7 @@ def _check_mma_plan(b, h, w, c, cx, backward):
 @pytest.mark.parametrize("cell", range(5))
 def test_forward_cells_take_the_tensor_cores(b, cell):
     h, w, c, cx = FWD_CELLS[cell]
-    plan = _check_mma_plan(b, h, w, c, cx, backward=False)
+    plan = _check_mma_plan(b, h, w, c, cx, "forward")
     # units of at least 128 pixels, and blocks that fill at least 120 SMs
     assert plan.pixels >= 128
     assert plan.blocks(c) >= 120
@@ -88,26 +92,26 @@ def test_forward_cells_take_the_tensor_cores(b, cell):
 @pytest.mark.parametrize("cell", range(5))
 def test_train_cells_take_the_tensor_cores(b, cell):
     h, w, c, cx = TRAIN_CELLS[cell]
-    plan = _check_mma_plan(b, h, w, c, cx, backward=True)
+    plan = _check_mma_plan(b, h, w, c, cx, "backward")
     assert plan.pixels >= 64
     assert plan.blocks(c) >= 120
 
 
 def test_cell4_runs_the_narrow_chunk():
     """C = 8 at cell 4: 8-channel chunks, two taps a k16 step."""
-    for backward, cells in ((False, FWD_CELLS), (True, TRAIN_CELLS)):
-        plan = fc.cell_plan(32, *cells[4], torch.bfloat16, backward=backward)
+    for kind, cells in (("forward", FWD_CELLS), ("backward", TRAIN_CELLS)):
+        plan = fc.cell_plan(32, *cells[4], torch.bfloat16, kind=kind)
         assert plan.cc == 8 and plan.block_c == 8
-        plan = fc.cell_plan(32, *cells[3], torch.bfloat16, backward=backward)
+        plan = fc.cell_plan(32, *cells[3], torch.bfloat16, kind=kind)
         assert plan.cc == 16
 
 
 def _edge_plans():
     out = []
     for (h, w, c, cx), b in chip_smoke.K1_EDGE_GEOMS:
-        for backward in (False, True):
-            out.append(((h, w, c, cx), b, backward,
-                        _check_mma_plan(b, h, w, c, cx, backward)))
+        for kind in ("forward", "backward"):
+            out.append(((h, w, c, cx), b, kind,
+                        _check_mma_plan(b, h, w, c, cx, kind)))
     return out
 
 
@@ -138,7 +142,8 @@ def test_edge_shapes_cover_every_choice():
 ])
 @pytest.mark.parametrize("backward", [False, True])
 def test_fma_plan(args, backward):
-    assert fc.cell_plan(*args, backward=backward) == fc.CellPlan(mma=False)
+    assert fc.cell_plan(*args, kind=_kind(backward)) == fc.CellPlan(
+        mma=False)
 
 
 # ---- the numpy mirror of the staged loop ---------------------------------
@@ -310,7 +315,7 @@ def _case(geom, b, backward, plan=None):
         cot = tuple(rng.normal(size=(b, hh, c, ww)).astype(f32)
                     for _ in range(2))
     plan = plan or fc.cell_plan(b, hh, ww, c, cx, torch.bfloat16,
-                                backward=backward)
+                                kind=_kind(backward))
     got = _mirror(h_prev, x_pad, c_prev, s_term, wt, cot, cx, plan)
     t = [torch.from_numpy(a) if a is not None else None
          for a in (h_prev, x_pad, c_prev, s_term, wt)]
