@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """K1 (the fused decode cell), K4 (the cell backward), K5 (the weight
 gradient), K3 (the pullback conv) and K8 (the NCHW ConvLSTM step) per cell,
-the bench-geometry mul forward and train step, timed on one GPU, for
-comparing two trees of the port in one call.
+K2 (the mask head) per head shape, the bench-geometry mul forward and train
+step, timed on one GPU, for comparing two trees of the port in one call.
 
 Runs the ``rsis_tpu_torch`` package beside it (run a copy of this script
 from the root of another tree to time that tree), with ``chip_smoke.py``'s
@@ -37,9 +37,22 @@ inputs, timers and bounds:
   (all without a name) at those cells and batches (``cell_plan`` replaced
   for the call), each checked against the plain version, the fastest
   beside the chosen one;
+- --k2: ``mask_head_fused_kernel`` ((B, H, C, W) input) and, where the
+  tree has it, ``mask_head_nchw_kernel`` ((B, C, H, W)) at the head's
+  shape at 512x1024 (B=32 and 4) and at the train step's (256x512, B=32),
+  bf16, and at the first in fp32: device ms of one launch, the plain
+  version's, the bound (where the tree's chip_smoke.py has
+  ``head_bound``), the two-call yardstick
+  ``F.interpolate(..., mode="bilinear", align_corners=True)`` then
+  ``F.conv2d`` on the NCHW input, and the error against the plain
+  version;
+- --k2-sweep: every plan of K2 at those shapes in both layouts
+  (``mask_head_plan`` replaced for the call), each checked against the
+  plain version, the fastest beside the chosen one;
 - --mul: the mul-skip forward at --batch, --steps (512x1024, bf16, K8
-  in every cell; chip_smoke.py's phase 3b): ms a forward, images per
-  second;
+  in every cell, K2 on the head where the tree routes it; chip_smoke.py's
+  phase 3b): ms a forward, images per second; with --profile, device
+  time by operation and the idle share of one forward;
 - --step: the train step at --batch, --steps (resnet101, device
   augmentation on, bf16): a warm-up step, then --iters steps each timed
   by the host clock around a synchronised step; with --profile, device
@@ -47,7 +60,7 @@ inputs, timers and bounds:
   name and their shares, and PyTorch's copy kernels (direct_copy).
 
 Prints one JSON object as its last line (and writes it to --out).
-Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8]
+Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8] [--k2] [--k2-sweep]
                                [--cell-sweep [k1 k4 k8]]
                                [--k1-batch 32 4] [--k4-batch 32 8]
                                [--k5] [--k3] [--k5-batch 32 8] [--sweep]
@@ -490,6 +503,102 @@ def sweep_cell(cs, kind: str, b: int, gen, top: int = 5) -> dict:
     return out
 
 
+# (B, H, C, W) of K2 at the head of the 512x1024 forward (B=32 and 4) and
+# of the 256x512 train step (B=32), hidden 128
+K2_SHAPES = [(32, 256, 8, 512), (4, 256, 8, 512), (32, 128, 8, 256)]
+
+
+def _k2_cases(cs, shape, gen, dtype=torch.bfloat16):
+    """(layout, operands, kernel, plain version) of each K2 wrapper this
+    tree has."""
+    from rsis_tpu_torch.ops import mask_head as mh
+    hs, weight, bias = cs.head_inputs(shape, dtype, gen)
+    yield ("rowmajor", (hs, weight, bias), mh.mask_head_fused_kernel,
+           mh.mask_head_ref)
+    if hasattr(mh, "mask_head_nchw_kernel"):
+        yield ("nchw", (hs.transpose(1, 2).contiguous(), weight, bias),
+               mh.mask_head_nchw_kernel, mh.mask_head_nchw_ref)
+
+
+def _ulps(cs, got, want) -> float:
+    return cs.max_err(got, want) / (cs.BF16_ULP
+                                    * want.float().abs().max().item())
+
+
+def time_k2(cs, shape, gen, dtype=torch.bfloat16) -> dict:
+    """K2 at one head shape in each layout: device ms of one launch, the
+    plain version's, the bound, the two-call yardstick and the error in
+    bf16 ulps of the max."""
+    F = torch.nn.functional
+    bms, by = (cs.head_bound(shape, dtype)
+               if hasattr(cs, "head_bound") else (None, None))
+    out = {"shape": list(shape), "dtype": str(dtype), "bound_ms": bms,
+           "bound_by": by}
+    for layout, ops, kern, plain in _k2_cases(cs, shape, gen, dtype):
+        err = _ulps(cs, kern(*ops), plain(*ops))
+        ms = cs.graph_ms(lambda: kern(*ops), iters=20)
+        pms = cs.graph_ms(lambda: plain(*ops), iters=5)
+        out[layout] = {"ms": ms, "plain_ms": pms, "err_ulps": err}
+        print(f"K2 {shape} {layout} {dtype}: {ms:.4f} ms (plain "
+              f"{pms:.4f}, bound {bms}; error {err:.3f} bf16 ulps of the "
+              f"max)", flush=True)
+        if layout == "rowmajor":
+            hs, weight, bias = ops
+            ht = hs.transpose(1, 2).contiguous()
+            wt, bt = weight.to(hs.dtype), bias.to(hs.dtype)
+            out["library_ms"] = cs.graph_ms(lambda: F.conv2d(F.interpolate(
+                ht, scale_factor=2, mode="bilinear", align_corners=True),
+                wt, bt, padding=1), iters=20)
+            print(f"K2 {shape}: interpolate + conv2d (two calls, a "
+                  f"yardstick) {out['library_ms']:.4f} ms", flush=True)
+    return out
+
+
+def sweep_k2(cs, shape, gen, top: int = 5) -> dict:
+    """Every plan of K2 (columns a thread, rows a block, warps) at one head
+    shape in each layout, timed like time_k2 and checked against the plain
+    version (one bf16 ulp of the max); returns each layout's fastest plans
+    beside the one mask_head_plan chooses."""
+    import itertools
+    from rsis_tpu_torch.ops import mask_head as mh
+    b, h, c, w = shape
+    chosen = mh.mask_head_plan
+    out = {}
+    for layout, ops, kern, plain in _k2_cases(cs, shape, gen):
+        strides = tuple(ops[0].stride()[:3]) if layout == "nchw" else (
+            h * c * w, w, c * w)
+        widest = mh.head_vector(w, ops[0].dtype, strides)
+        want = plain(*ops)
+        rows = []
+        for v, r, warps in itertools.product(mh.HEAD_VECTORS, mh.HEAD_ROWS,
+                                             (1, 2, 4, 8)):
+            if v > widest or r > h or (warps > 1 and 32 * (warps // 2) * v
+                                       >= w):
+                continue
+            plan = mh.MaskHeadPlan(v, r, warps)
+            mh.mask_head_plan = lambda *a, plan=plan, **k: plan
+            try:
+                got = kern(*ops)
+                ms = cs.graph_ms(lambda: kern(*ops), iters=10)
+            finally:
+                mh.mask_head_plan = chosen
+            if _ulps(cs, got, want) > 1:
+                raise SystemExit(f"K2 {shape} {layout} {plan}: error "
+                                 f"{_ulps(cs, got, want)} bf16 ulps")
+            rows.append((ms, (v, r, warps)))
+        rows.sort()
+        p = chosen(b, h, c, w, ops[0].dtype, strides)
+        mine = (p.v, p.rows, p.warps)
+        mine_ms = [ms for ms, q in rows if q == mine]
+        out[layout] = {"chosen": mine, "chosen_ms": mine_ms[0] if mine_ms
+                       else None, "best": rows[:top], "plans": len(rows)}
+        print(f"K2 sweep {shape} {layout}: {len(rows)} plans (v, rows, "
+              f"warps); chosen {mine} {out[layout]['chosen_ms']} ms; "
+              "fastest " + "; ".join(f"{q} {ms:.4f}" for ms, q in
+                                     rows[:top]), flush=True)
+    return out
+
+
 def time_mul(cs, args) -> dict:
     """The mul-skip forward at --batch, --steps (chip_smoke's phase 3b:
     resnet101, hidden 128, 512x1024, bf16, every cell one K8 launch,
@@ -498,10 +607,10 @@ def time_mul(cs, args) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     xs = [torch.randn(args.batch, *FWD_HW, 3, generator=gen, device="cuda")]
     out = cs.mul_forward_phase(argparse.Namespace(
-        steps=args.steps, seed=args.seed, profile=False), xs)
+        steps=args.steps, seed=args.seed, profile=args.profile), xs)
     return {"batch": args.batch, "steps": args.steps,
             "forward_ms": out["forward_ms"],
-            "images_per_s": out["images_per_s"]}
+            "images_per_s": out["images_per_s"], "profile": out["profile"]}
 
 
 def time_step(cs, args) -> dict:
@@ -602,6 +711,9 @@ def main() -> int:
     ap.add_argument("--k3-sweep", action="store_true",
                     help="time every tensor-core plan of K3 per cell at "
                     "each --k5-batch")
+    ap.add_argument("--k2", action="store_true")
+    ap.add_argument("--k2-sweep", action="store_true",
+                    help="time every plan of K2 at each head shape")
     ap.add_argument("--mul", action="store_true")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
@@ -643,6 +755,12 @@ def main() -> int:
     if args.k3_sweep:
         result["k3_sweep"] = {b: sweep_k3(cs, b, gen)
                               for b in args.k5_batch}
+    if args.k2:
+        result["k2"] = [time_k2(cs, shape, gen) for shape in K2_SHAPES] + [
+            time_k2(cs, K2_SHAPES[0], gen, torch.float32)]
+    if args.k2_sweep:
+        result["k2_sweep"] = {str(shape): sweep_k2(cs, shape, gen)
+                              for shape in K2_SHAPES}
     if args.mul:
         result["mul"] = time_mul(cs, args)
     if args.step:

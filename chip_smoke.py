@@ -9,7 +9,11 @@ Phases, each fatal on failure:
      (``rsis_tpu_torch/kernels/rle``, g++);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, in float32 (TF32 off) and bfloat16:
-     the forward kernels K1 and K2 at the inference geometry, the
+     the forward kernel K1 at the inference geometry, the mask head K2 in
+     both its layouts ((B, H, C, W) of the concat decode, (B, C, H, W) of
+     the mul decode) at the head's shape at B=32, 4 and --batch, at the
+     train step's head shape and at edge shapes of its launch plan (twice
+     on the same inputs with bit-identical results), the
      ConvLSTM step K8 at the mul decode's five cells at B=32 and 4 and at
      edge shapes of its launch plan (twice on the same inputs with
      bit-identical results), the
@@ -28,9 +32,10 @@ Phases, each fatal on failure:
      --seed) answering a few batches, with K1's and K2's launch counts
      read from that run and the outputs held against the port's plain path
      on the card (and, in float32 at T=2, against a tighter tolerance);
-  3b. the same with mul skips (the plain decode, whose cells run K8): K8
-     launched 5 T times a forward, K1 and K2 never, the outputs held
-     against the plain path, images per second;
+  3b. the same with mul skips (the plain decode, whose cells run K8 and
+     whose head runs K2 on the NCHW state): K8 launched 5 T times and K2
+     T times a forward, K1 never, the outputs held against the plain
+     path, images per second;
   3c. the evaluation entry points in process on the card:
      ``cli.eval_cityscapes`` (2 images at 1024x2048, input 512x1024,
      T=20, built-in AP), ``cli.eval_leaves`` (CVPPP A1), ``cli.eval``
@@ -59,9 +64,10 @@ Phases, each fatal on failure:
      train ms per step from CUDA events or host clocks around whole,
      synchronised calls; each kernel's device time (CUDA-graph replay)
      against its plain version's, its bound and, where one exists, the
-     PyTorch library call for the same function; with --profile, device
-     time by operation and the idle share of one forward, one step, a
-     resumed trainer run and the Cityscapes evaluation.
+     PyTorch library call for the same function (K2 in both layouts,
+     beside the two-call interpolate + conv2d yardstick); with --profile,
+     device time by operation and the idle share of one forward, one
+     step, a resumed trainer run and the Cityscapes evaluation.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -134,6 +140,14 @@ K8_EDGE_GEOMS = [((1, 8, 8, 8), 1), ((17, 40, 16, 8), 2),
                  ((3, 24, 8, 32), 1), ((1, 8, 64, 64), 1),
                  ((17, 136, 64, 64), 2), ((17, 136, 32, 32), 3),
                  ((17, 40, 8, 32), 3), ((129, 264, 16, 8), 2)]
+# K2's edge shapes (B, H, C, W), beside the head's shapes at 512x1024 and
+# 256x512: each column width of its plan (v = 4, 2, 1), H = W = 1, odd W,
+# W off a warp's columns (a part warp, five warps), rows a block that do
+# not divide H, C = 3, 5 and 16 (two channel chunks), B = 1, and a row
+# wider than one block (strips with halo threads)
+K2_EDGE_GEOMS = [(1, 1, 8, 1), (2, 5, 3, 7), (2, 13, 8, 70),
+                 (3, 9, 16, 200), (1, 17, 8, 520), (2, 33, 5, 36),
+                 (8, 99, 8, 512), (1, 6, 8, 1100)]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
@@ -325,6 +339,102 @@ def head_inputs(shape, dtype, gen):
     weight = torch.randn(1, c, 3, 3, generator=gen, device="cuda") * 0.3
     bias = torch.randn(1, generator=gen, device="cuda")
     return hs, weight, bias
+
+
+HEAD_LAYOUTS = ("rowmajor", "nchw")
+
+
+def head_case(shape, layout, dtype, gen):
+    """K2's operands at one head shape (B, H, C, W) in one layout, its
+    wrapper and its plain version: "rowmajor" hs (B, H, C, W), the concat
+    decode's (``mask_head_fused_kernel``), or "nchw" (B, C, H, W), the
+    plain decoder's (``mask_head_nchw_kernel``)."""
+    from rsis_tpu_torch.ops import mask_head as mh
+    hs, weight, bias = head_inputs(shape, dtype, gen)
+    if layout == "rowmajor":
+        return ((hs, weight, bias), mh.mask_head_fused_kernel,
+                mh.mask_head_ref)
+    return ((hs.transpose(1, 2).contiguous(), weight, bias),
+            mh.mask_head_nchw_kernel, mh.mask_head_nchw_ref)
+
+
+def head_plan_tag(shape, layout, dtype) -> str:
+    """K2's launch plan at one head shape and layout, for the check lines."""
+    from rsis_tpu_torch.ops.mask_head import mask_head_plan
+    b, h, c, w = shape
+    strides = ((h * c * w, w, c * w) if layout == "rowmajor"
+               else (c * h * w, h * w, w))
+    p = mask_head_plan(b, h, c, w, dtype, strides)
+    return (f"(v={p.v}, {p.rows} rows a block, {p.warps} warps, "
+            f"{p.strips(w)} strips)")
+
+
+def head_bound(shape, dtype) -> tuple[float, str]:
+    """K2's bound at one head shape (B, H, C, W): the input, the fp32
+    weight and bias read once and the (B, 2H, 2W) output written once; the
+    channel contraction, the dy-summed row stage and the dx-summed column
+    stage as operations."""
+    b, h, c, w = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    n_bytes = b * h * c * w * size + 4 * (9 * c + 1) + b * 4 * h * w * size
+    ops = (18.0 * c * b * h * w + 12.0 * b * 2 * h * (w + 2) * 3
+           + 12.0 * b * 4 * h * w)
+    return bound_ms(n_bytes, ops, dtype)
+
+
+def check_k2(shapes, gen) -> float:
+    """K2 against its plain version in both layouts at the head shapes
+    (B, H, C, W) given and at K2_EDGE_GEOMS: fp32 (TF32 off) within
+    FP32_TOL, bf16 within one bf16 ulp of max|ref|; each launched twice on
+    the same inputs with bit-identical results. Returns the worst bf16
+    error."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for shape in list(shapes) + K2_EDGE_GEOMS:
+            for layout in HEAD_LAYOUTS:
+                ops, kern, ref = head_case(shape, layout, dtype, gen)
+                got = kern(*ops)
+                again = kern(*ops)
+                want = ref(*ops)
+                torch.cuda.synchronize()
+                name = (f"K2 {shape} {layout} {tag} "
+                        + head_plan_tag(shape, layout, dtype))
+                err = max_err(got, want)
+                check(name, err, tol_for(dtype, want))
+                if not torch.equal(got, again):
+                    raise SystemExit(f"{name}: two launches on the same "
+                                     f"inputs differ")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+    return worst
+
+
+def time_k2(shape, gen) -> dict:
+    """K2 at one head shape (bf16) in both layouts: device ms of one
+    launch, the plain version's, the bound and a two-call yardstick
+    (``F.interpolate(..., mode="bilinear", align_corners=True)`` then
+    ``F.conv2d`` on the NCHW input; the port never calls it)."""
+    F = torch.nn.functional
+    dtype = torch.bfloat16
+    bms, by = head_bound(shape, dtype)
+    out = {"shape": list(shape), "bound_ms": bms, "bound_by": by}
+    for layout in HEAD_LAYOUTS:
+        ops, kern, ref = head_case(shape, layout, dtype, gen)
+        out[layout] = {"ms": graph_ms(lambda: kern(*ops), iters=20),
+                       "plain_ms": graph_ms(lambda: ref(*ops), iters=5)}
+        if layout == "nchw":
+            ht, weight, bias = ops
+            wt, bt = weight.to(dtype), bias.to(dtype)
+            out["library_ms"] = graph_ms(lambda: F.conv2d(F.interpolate(
+                ht, scale_factor=2, mode="bilinear", align_corners=True),
+                wt, bt, padding=1), iters=20)
+        log(f"  K2 {shape} {layout}: {out[layout]['ms']:.4f} ms (plain "
+            f"{out[layout]['plain_ms']:.4f}, bound {bms:.4f} by {by}) "
+            + head_plan_tag(shape, layout, dtype))
+    log(f"  K2 {shape}: interpolate + conv2d (two calls, a yardstick) "
+        f"{out['library_ms']:.4f} ms")
+    return out
 
 
 def bwd_inputs(geom, b, dtype, gen):
@@ -1210,9 +1320,9 @@ def forward_counters() -> dict:
 
 def forward_launches(skip_mode: str, T: int, n: int) -> dict:
     """Launches of n forwards of T steps: K1 and K2 for the channel-
-    separable skips, K8 for mul."""
+    separable skips, K8 and K2 for mul."""
     if skip_mode == "mul":
-        return {"fused_cell_rowmajor": 0, "mask_head_fused_kernel": 0,
+        return {"fused_cell_rowmajor": 0, "mask_head_fused_kernel": T * n,
                 "clstm_step": 5 * T * n}
     return {"fused_cell_rowmajor": 5 * T * n,
             "mask_head_fused_kernel": T * n, "clstm_step": 0}
@@ -1221,8 +1331,9 @@ def forward_launches(skip_mode: str, T: int, n: int) -> dict:
 def mul_forward_phase(args, xs) -> dict:
     """Phase 3b: ``make_forward`` at full width with mul skips (resnet101,
     hidden 128, 9 classes, 512x1024, bf16, random weights from --seed) on
-    the batches xs, K8's launches read from that run (5 T per forward, K1
-    and K2 none), the outputs held against the plain path on the card and
+    the batches xs, K8's and K2's launches read from that run (5 T and T
+    per forward, K1 none), the outputs held against the plain path on the
+    card and
     the images per second (with --profile, device time by operation and
     the idle share of one forward)."""
     from rsis_tpu_torch import Config
@@ -1258,9 +1369,10 @@ def mul_forward_phase(args, xs) -> dict:
     if not all(torch.isfinite(t.float()).all() for t in outs[-1]):
         raise SystemExit("non-finite mul output")
 
-    # the same weights through the plain path (K8's plain version) on the
-    # card; h and c round to bf16 at every cell in both paths, so the
-    # outputs agree to a few bf16 ulps of [0, 1] (the concat check's limit)
+    # the same weights through the plain path (K8's plain version, the
+    # upsample and F.conv2d for K2) on the card; h and c round to bf16 at
+    # every cell in both paths, so the outputs agree to a few bf16 ulps of
+    # [0, 1] (the concat check's limit)
     enc_p, dec_p = build_models(cfg)
     enc_p.load_state_dict(weights[0])
     dec_p.load_state_dict(weights[1])
@@ -1545,8 +1657,6 @@ def main() -> int:
         from rsis_tpu_torch.ops import _build
         from rsis_tpu_torch.ops.fused_cell import (fused_cell_rowmajor,
                                                    fused_cell_rowmajor_ref)
-        from rsis_tpu_torch.ops.mask_head import (mask_head_fused_kernel,
-                                                  mask_head_ref)
         from rsis_tpu_torch.kernels import _binding as rle_binding
     except ImportError as e:
         print(f"chip_smoke: the rsis_tpu_torch package is missing: {e}",
@@ -1593,7 +1703,7 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions ----------------------
     log(f"kernel checks at the main path's shapes, B={b}:")
-    k1_err = k2_err = k4_edge_err = 0.0
+    k1_err = k4_edge_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         for i, geom in enumerate(cell_geoms):
@@ -1629,16 +1739,10 @@ def main() -> int:
             tol = (FP32_TOL if dtype == torch.float32 else
                    BF16_ULP * want.float().abs().max().item())
             check(f"K1 {geom} B=2 {tag} {nm}", max_err(got, want), tol)
-        hs, hw, hb = head_inputs(head_shape, dtype, gen)
-        got = mask_head_fused_kernel(hs, hw, hb)
-        want = mask_head_ref(hs, hw, hb)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        tol = (FP32_TOL if dtype == torch.float32 else
-               BF16_ULP * want.float().abs().max().item())
-        check(f"K2 head {head_shape} {tag}", err, tol)
-        if dtype == torch.bfloat16:
-            k2_err = err
+    k2_err = check_k2([(bb,) + head_shape[1:] for bb in
+                       sorted({32, 4, b}, reverse=True)]
+                      + [(tb, TRAIN_HW[0] // 2) + head_shape[2:3]
+                         + (TRAIN_HW[1] // 2,)], gen)
     k8_err = check_clstm(k8_geoms, sorted({32, 4, b}, reverse=True), gen)
     log(f"backward kernel checks at the train step's shapes, B={tb}:")
     bwd_err = check_backward_kernels(train_geoms, tb, gen,
@@ -1774,17 +1878,7 @@ def main() -> int:
         log(f"  K1 cell{i} {geom}: {ms:.4f} ms (plain {pms:.4f}, bound "
             f"{bms:.4f} by {by})")
     k1_by = bound_ms(k1["bytes"], k1["ops"], dtype)[1]
-    hs, hw, hb = head_inputs(head_shape, dtype, gen)
-    k2_ms = graph_ms(lambda: mask_head_fused_kernel(hs, hw, hb), iters=20)
-    k2_pms = graph_ms(lambda: mask_head_ref(hs, hw, hb), iters=5)
-    bh, hh, c, ww = head_shape
-    k2_bytes = nbytes(hs, hw, hb) + bh * 4 * hh * ww * hs.element_size()
-    # channel contraction, dy-summed row stage, dx-summed column stage
-    k2_ops = (18.0 * c * bh * hh * ww + 12.0 * bh * 2 * hh * (ww + 2) * 3
-              + 12.0 * bh * 4 * hh * ww)
-    k2_bms, k2_by = bound_ms(k2_bytes, k2_ops, dtype)
-    log(f"  K2 head {head_shape}: {k2_ms:.4f} ms (plain {k2_pms:.4f}, "
-        f"bound {k2_bms:.4f} by {k2_by})")
+    k2 = time_k2(head_shape, gen)
     k8 = time_clstm(k8_geoms, b, gen)
     bwd = time_backward_kernels(train_geoms, tb, gen)
     lap = time_lap(tb, args.train_steps, 20, gen)
@@ -1810,8 +1904,9 @@ def main() -> int:
          "source": "rsis_tpu_torch/csrc/mask_head.cu",
          "replaces": "rsis_tpu/ops/pallas_mask_head.py:336",
          "launches": launches["mask_head_fused_kernel"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_pms,
-         "bound_ms": k2_bms, "bound_by": k2_by, "library_ms": None},
+         "max_abs_err": k2_err, "ms": k2["rowmajor"]["ms"],
+         "plain_ms": k2["rowmajor"]["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
         bwd_row("k3", "conv3x3_rowmajor", "rsis_tpu_torch/csrc/conv3x3.cu",
                 "rsis_tpu/ops/pallas_decode.py:437"),
         bwd_row("k4", "cell_backward_dgates",
@@ -1852,6 +1947,7 @@ def main() -> int:
                        "encoder_ms": enc_ms, "decode_ms_per_step": dec_ms,
                        "forward_ms": fwd_ms, "images_per_s": img_s,
                        "main_err": main_err, "k1_cells": k1["cells"],
+                       "k2": k2,
                        "cell_bwd_bf16_ulps": cell_bwd_ulps,
                        "train": train, "train_batch": tb,
                        "trainer": trainer, "warp": warp,
@@ -1861,7 +1957,9 @@ def main() -> int:
                        "evals": evals, "kernels": kernels}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"device times (CUDA-graph replay): K1 and K8 ms are one decode "
-        f"step's five launches at B={b}, K2 ms one launch; K3, K4 and K5 ms "
+        f"step's five launches at B={b}, K2 ms one launch ((B, H, C, W) "
+        f"input; its library ms the two-call interpolate + conv2d "
+        f"yardstick); K3, K4 and K5 ms "
         f"one decode step's five launches at B={tb}, K6 and K7 ms one "
         f"launch; launches of K1 and K2 are from the inference path, of K8 "
         f"from the mul path, of K3-K7 from the train path")

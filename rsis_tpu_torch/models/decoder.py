@@ -4,7 +4,10 @@ Counterpart of ``rsis_tpu/models/decoder.py`` (``decoder_widths``,
 ``init_carry``, ``RSISDecoder``). Each cell's hidden state is upsampled
 (align_corners) to the next skip scale and fused with that skip
 (concat/sum/mul/none); the finest state is upsampled 2x and projected to
-one channel of mask logits; the global max of every cell's state feeds
+one channel of mask logits (with no gradient recorded and a 3x3 head, one
+launch of the mask head kernel K2 on the state itself,
+``ops/mask_head.mask_head_nchw_kernel``, which never materialises the
+upsample); the global max of every cell's state feeds
 ``fc_class`` and ``fc_stop``. In training mode (``module.train()``) the
 three dropouts of the reference act: ``dropout`` zeroes whole channels of
 each cell's hidden state (one draw per image and channel, kept over H and
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.mask_head import mask_head_nchw_kernel
 from ..ops.upsample import upsample_bilinear_align_corners
 from .clstm import ConvLSTMCell
 
@@ -113,7 +117,8 @@ class RSISDecoder(nn.Module):
         skips: 5 skip features (x5..x1, NCHW); carry: the state pyramid
         of the previous step, or None for zeros; generator: the source of
         the dropouts' random numbers, needed when ``needs_generator()``;
-        plain: the cells take K8's plain version (``ConvLSTMCell``).
+        plain: the cells take K8's plain version (``ConvLSTMCell``) and
+        the head the upsample and ``F.conv2d`` in place of K2.
         Returns ((mask_logits (B, 1, 2H1, 2W1), class_probs (B, K),
         stop_logits (B, 1)), new_carry)."""
         if self.needs_generator() and generator is None:
@@ -144,13 +149,18 @@ class RSISDecoder(nn.Module):
                     clstm_in = up * nxt
                 else:
                     clstm_in = up
-            else:
-                clstm_in = upsample_bilinear_align_corners(
-                    hidden, hidden.shape[2] * 2, hidden.shape[3] * 2)
-        dt = clstm_in.dtype
-        mask_logits = F.conv2d(clstm_in, self.conv_out.weight.to(dt),
-                               self.conv_out.bias.to(dt),
-                               padding=self.conv_out.padding)
+        if (not plain and self.conv_out.kernel_size == (3, 3)
+                and not torch.is_grad_enabled()):
+            # K2 on the hidden state itself: the upsample never exists
+            mask_logits = mask_head_nchw_kernel(hidden.contiguous(),
+                                                self.conv_out.weight,
+                                                self.conv_out.bias)
+        else:
+            up = upsample_bilinear_align_corners(
+                hidden, hidden.shape[2] * 2, hidden.shape[3] * 2)
+            mask_logits = F.conv2d(up, self.conv_out.weight.to(up.dtype),
+                                   self.conv_out.bias.to(up.dtype),
+                                   padding=self.conv_out.padding)
         feats = torch.cat(side_feats, dim=-1)
         cls_in, stop_in = feats, feats
         if train and self.dropout_cls > 0:

@@ -7,7 +7,8 @@ are upsampled to the input size and the mask and stop sigmoids applied.
 Skip modes concat/sum/none with 3x3 convolutions decode through the
 kernels (``models/rowmajor_decoder.py``); ``mul`` is not
 channel-separable and, like other kernel sizes, takes the plain decode,
-whose 3x3 cells run the ConvLSTM step kernel K8 in inference.
+whose 3x3 cells run the ConvLSTM step kernel K8 and whose 3x3 head runs
+the mask head kernel K2 in inference.
 """
 
 from __future__ import annotations
@@ -66,8 +67,8 @@ def forward(cfg: Config, encoder: FeatureExtractor, decoder: RSISDecoder,
 
     The encoder runs in the dtype of its parameters on x cast to it; the
     decoder computes in ``compute_dtype(cfg)``. plain=True replaces the
-    kernels (K1 and K2, or K8 in the plain decode) by their plain versions
-    (the oracle they are held against on the card). Returns (sigmoid
+    kernels (K1 and K2, or K8 and K2 in the plain decode) by their plain
+    versions (the oracle they are held against on the card). Returns (sigmoid
     masks (B, T, H, W), class_probs (B, T, K), sigmoid stops (B, T, 1))."""
     T = T if T is not None else cfg.maxseqlen
     dtype = compute_dtype(cfg)
