@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """K1 (the fused decode cell), K4 (the cell backward), K5 (the weight
 gradient), K3 (the pullback conv) and K8 (the NCHW ConvLSTM step) per cell,
-K2 (the mask head) per head shape, the bench-geometry mul forward and train
-step, timed on one GPU, for comparing two trees of the port in one call.
+K2 (the mask head) per head shape, K6 (the LAP matcher) and K7 (the
+augmentation warp) at the train step's shapes, the bench-geometry mul
+forward and train step, timed on one GPU, for comparing two trees of the
+port in one call.
 
 Runs the ``rsis_tpu_torch`` package beside it (run a copy of this script
 from the root of another tree to time that tree), with ``chip_smoke.py``'s
@@ -49,6 +51,14 @@ inputs, timers and bounds:
 - --k2-sweep: every plan of K2 at those shapes in both layouts
   (``mask_head_plan`` replaced for the call), each checked against the
   plain version, the fastest beside the chosen one;
+- --k6: ``solve_lap_batch`` (K6) at the train step's matcher shapes
+  (32, 20, 20) and (8, 5, 20) on the tie-heavy loss-like costs of
+  ``lap_cases``: device ms of one launch, of the tree's ``hungarian`` on
+  the (B, N, T) costs, the Dijkstra steps of the longest problem and ns
+  a step, row4col against the plain version;
+- --k7: ``warp_by_coefficients`` (K7) at 256x512, bf16 RGB, the bench's
+  ranges, B=32 and 8 (``chip_smoke.time_warp``): ms, plain, bound and
+  share, the two ``torch.gather`` calls, the augmentation block;
 - --mul: the mul-skip forward at --batch, --steps (512x1024, bf16, K8
   in every cell, K2 on the head where the tree routes it; chip_smoke.py's
   phase 3b): ms a forward, images per second; with --profile, device
@@ -56,11 +66,13 @@ inputs, timers and bounds:
 - --step: the train step at --batch, --steps (resnet101, device
   augmentation on, bf16): a warm-up step, then --iters steps each timed
   by the host clock around a synchronised step; with --profile, device
-  time by kernel over one more step: K1's, K4's, K5's and K3's kernels by
-  name and their shares, and PyTorch's copy kernels (direct_copy).
+  time by kernel over one more step: K1's, K4's, K5's, K3's, K6's and
+  K7's kernels by name and their shares, and PyTorch's copy kernels
+  (direct_copy).
 
 Prints one JSON object as its last line (and writes it to --out).
 Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8] [--k2] [--k2-sweep]
+                               [--k6] [--k7]
                                [--cell-sweep [k1 k4 k8]]
                                [--k1-batch 32 4] [--k4-batch 32 8]
                                [--k5] [--k3] [--k5-batch 32 8] [--sweep]
@@ -599,6 +611,60 @@ def sweep_k2(cs, shape, gen, top: int = 5) -> dict:
     return out
 
 
+# K6 at the train step's matcher shapes (B, T predictions, N GT slots)
+# and K7's batches at 256x512 (bf16, the bench's ranges)
+K6_SHAPES = [(32, 20, 20), (8, 5, 20)]
+K7_BATCHES = [32, 8]
+
+
+def time_k6(cs, shape, gen) -> dict:
+    """K6 at one matcher shape on the tie-heavy loss-like costs of
+    ``lap_cases``: device ms of one launch on contiguous costs, and of the
+    tree's ``hungarian`` on (B, N, T) costs as the train step holds them
+    (the transposed view: with the contiguous copy that the tree makes, if
+    any, and the perm); the Dijkstra steps of the longest problem and ns a
+    step; row4col against the plain version."""
+    from rsis_tpu_torch.ops import lap
+    from rsis_tpu_torch.ops.matching import hungarian
+    b, t, n = shape
+    costs = [c for name, c in cs.lap_cases(gen, b, ((t, n),))
+             if name.startswith("ties")][0]
+    steps = []
+    for i in range(b):
+        stats = {}
+        lap.solve_lap_batch_ref(costs[i:i + 1], stats)
+        steps.append(stats["scans"])
+    same = torch.equal(lap.solve_lap_batch(costs),
+                       lap.solve_lap_batch_ref(costs))
+    ms = cs.graph_ms(lambda: lap.solve_lap_batch(costs), iters=20)
+    bnt = costs.transpose(1, 2).contiguous()
+    matcher_ms = cs.graph_ms(lambda: hungarian(bnt), iters=20)
+    out = {"shape": list(shape), "ms": ms, "matcher_ms": matcher_ms,
+           "scans": sum(steps), "max_scans": max(steps),
+           "ns_per_step": ms * 1e6 / max(steps), "row4col_equal": same}
+    print(f"K6 {shape}: {ms:.4f} ms, matcher {matcher_ms:.4f} ms; "
+          f"{sum(steps)} Dijkstra steps, {max(steps)} in the longest "
+          f"problem: {out['ns_per_step']:.1f} ns a step; row4col "
+          f"{'equal to' if same else 'DIFFERS from'} the plain version's",
+          flush=True)
+    return out
+
+
+def time_k7(cs, b: int, gen) -> dict:
+    """K7 at 256x512, bf16, the bench's ranges (chip_smoke.time_warp): ms,
+    plain, bound and its share, the two torch.gather calls, the
+    augmentation block; the plan where the tree has ``warp_plan``."""
+    from rsis_tpu_torch.ops import warp
+    out = cs.time_warp(b, gen)
+    out["share"] = out["bound_ms"] / out["ms"]
+    if hasattr(warp, "warp_plan"):
+        out["plan"] = str(warp.warp_plan(cs.TRAIN_HW[1], 3, 2))
+    print(f"K7 B={b}: {out['ms']:.4f} ms, {100 * out['share']:.1f}% of "
+          f"the bound {out['bound_ms']:.4f}; plan {out.get('plan')}",
+          flush=True)
+    return out
+
+
 def time_mul(cs, args) -> dict:
     """The mul-skip forward at --batch, --steps (chip_smoke's phase 3b:
     resnet101, hidden 128, 512x1024, bf16, every cell one K8 launch,
@@ -671,6 +737,10 @@ def time_step(cs, args) -> dict:
                    if "dwt_" in k or "namespace)::reduce_kernel" in k},
             "k3": {k: v for k, v in kernels.items() if "conv_mma_kernel" in k
                    or "conv_reduce_kernel" in k or "conv_fma_kernel" in k},
+            "k6": {k: v for k, v in kernels.items() if "lap_kernel" in k},
+            "k7": {k: v for k, v in kernels.items()
+                   if "warp_kernel" in k or "warp_segment_kernel" in k
+                   or "warp_pixel_kernel" in k},
             "direct_copy": {k: v for k, v in kernels.items()
                             if "direct_copy" in k}}
         out["profile"] = {"wall_ms": wall_ms, "busy_ms": busy,
@@ -714,6 +784,8 @@ def main() -> int:
     ap.add_argument("--k2", action="store_true")
     ap.add_argument("--k2-sweep", action="store_true",
                     help="time every plan of K2 at each head shape")
+    ap.add_argument("--k6", action="store_true")
+    ap.add_argument("--k7", action="store_true")
     ap.add_argument("--mul", action="store_true")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
@@ -761,6 +833,10 @@ def main() -> int:
     if args.k2_sweep:
         result["k2_sweep"] = {str(shape): sweep_k2(cs, shape, gen)
                               for shape in K2_SHAPES}
+    if args.k6:
+        result["k6"] = [time_k6(cs, shape, gen) for shape in K6_SHAPES]
+    if args.k7:
+        result["k7"] = {b: time_k7(cs, b, gen) for b in K7_BATCHES}
     if args.mul:
         result["mul"] = time_mul(cs, args)
     if args.step:

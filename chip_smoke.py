@@ -22,11 +22,16 @@ Phases, each fatal on failure:
      on the same inputs with bit-identical results; K3 also at B = 8 and
      32, its pullback's dx_pad and dh_prev equal to its stacked output's
      slice and pad bit for bit), the LAP matcher K6 on random and
-     tie-heavy costs, the cell's whole backward
+     tie-heavy costs at the train step's shapes and at K6_EDGE_SHAPES
+     (also all-equal and negative costs; each case also as a transposed
+     view; row4col identical to the plain version's, twice on the same
+     inputs with identical results), the cell's whole backward
      (K4 + K5 + K3) against autograd through the plain cell, and the
      augmentation warp K7 at the train geometry (bit-identical: random
      flips at the JAX bench's ranges, the identity, a strong translation
-     that clamps at the borders);
+     that clamps at the borders) and at K7_EDGE_GEOMS (row tails, narrow
+     stores, C = 1-4, misaligned inputs), twice on the same inputs
+     with bit-identical results;
   3. the inference path: ``make_forward`` at full width (resnet101, hidden
      128, 9 classes, concat, 512x1024, bfloat16, random weights from
      --seed) answering a few batches, with K1's and K2's launch counts
@@ -148,6 +153,23 @@ K8_EDGE_GEOMS = [((1, 8, 8, 8), 1), ((17, 40, 16, 8), 2),
 K2_EDGE_GEOMS = [(1, 1, 8, 1), (2, 5, 3, 7), (2, 13, 8, 70),
                  (3, 9, 16, 200), (1, 17, 8, 520), (2, 33, 5, 36),
                  (8, 99, 8, 512), (1, 6, 8, 1100)]
+# K6's edge shapes (B, nr, nc): one and several register slots a lane
+# (nc = 1, 32, 33, 64, 128), nr = 1, 1 < nr < nc (the transposed view's
+# staging with its two strides apart) and nr = nc, B = 1, 3 and 33 (a
+# small B at large nc: the host oracle is slow there); each in check_lap
+# with random, tie-heavy, all-equal and negative (with -0.0) costs,
+# contiguous and as a transposed view
+K6_EDGE_SHAPES = [(33, 1, 1), (3, 1, 32), (33, 32, 32), (3, 1, 33),
+                  (3, 5, 33), (3, 33, 33), (1, 1, 64), (3, 20, 64),
+                  (3, 64, 64), (1, 1, 128), (1, 128, 128)]
+# K7's edge geometries (B, H, W, C), each in fp32 and bf16 in check_warp:
+# W = 1, 7 and 9 (a row's tail alone, stores narrower than 16 bytes), 513
+# (a tail after a whole segment), H = 1, C = 1, 2 and 4 (a pixel as one 4-,
+# 8- or 16-byte vector load) and 3, B = 1; at C = 2 and 4 also with the
+# image and the ids at a misaligned address (element gathers)
+K7_EDGE_GEOMS = [(1, 1, 1, 3), (2, 3, 7, 1), (1, 5, 9, 4), (2, 1, 513, 3),
+                 (1, 4, 513, 4), (3, 6, 9, 3), (1, 2, 64, 1), (2, 3, 40, 2),
+                 (2, 5, 40, 4)]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
@@ -637,7 +659,8 @@ def check_k3(dg, wpack, geom, b, dtype) -> float:
 def lap_cases(gen, b=32, shapes=((5, 20), (20, 20))):
     """(name, costs (B, nr, nc)) at the train step's matcher shapes:
     random costs and tie-heavy ones, where the invalid (prediction, GT)
-    pairs cost exactly 10.0 as in the loss."""
+    pairs cost exactly 10.0 as in the loss; each contiguous, then as the
+    transposed view of a (B, nc, nr) tensor, as the matcher passes it."""
     cases = []
     for nr, nc in shapes:
         rnd = torch.rand(b, nr, nc, generator=gen, device="cuda")
@@ -649,7 +672,9 @@ def lap_cases(gen, b=32, shapes=((5, 20), (20, 20))):
         coarse = torch.floor(rnd * 4) / 4    # ties among valid pairs too
         cases.append((f"ties ({b}, {nr}, {nc})",
                       (coarse * valid + (1 - valid) * 10.0).contiguous()))
-    return cases
+    return cases + [(f"{name} transposed",
+                     c.transpose(1, 2).contiguous().transpose(1, 2))
+                    for name, c in cases]
 
 
 def assignment_cost(costs, row4col) -> torch.Tensor:
@@ -669,19 +694,54 @@ def assignment_cost(costs, row4col) -> torch.Tensor:
     return (picked * taken).sum(1)
 
 
+def lap_edge_cases(gen):
+    """(name, costs) at K6_EDGE_SHAPES: random, tie-heavy (quarters),
+    all-equal and negative costs (a third of them -0.0), each contiguous
+    and as the transposed view of a (B, nc, nr) tensor, as the matcher
+    passes it."""
+    cases = []
+    for b, nr, nc in K6_EDGE_SHAPES:
+        rnd = torch.rand(b, nr, nc, generator=gen, device="cuda")
+        neg = rnd - 0.5
+        neg[:, :, ::3] = -0.0
+        for kind, c in (("random", rnd), ("ties", torch.floor(rnd * 4) / 4),
+                        ("all-equal", torch.full_like(rnd, 0.25)),
+                        ("negative", neg)):
+            cases.append((f"{kind} ({b}, {nr}, {nc})", c.contiguous()))
+            cases.append((f"{kind} ({b}, {nr}, {nc}) transposed",
+                          c.transpose(1, 2).contiguous().transpose(1, 2)))
+    return cases
+
+
 def check_lap(gen) -> float:
-    """K6 against its plain version: valid assignments of equal total cost
-    (1e-5 relative). Returns the largest total-cost difference."""
+    """K6 against its plain version on lap_cases and lap_edge_cases:
+    row4col identical to the plain version's (which also makes the total
+    cost equal), valid assignments, and two launches identical. Returns
+    the largest total-cost difference (0 where row4col agrees)."""
     from rsis_tpu_torch.ops.lap import solve_lap_batch, solve_lap_batch_ref
     worst = 0.0
-    for name, costs in lap_cases(gen):
-        got = assignment_cost(costs, solve_lap_batch(costs))
-        want = assignment_cost(costs, solve_lap_batch_ref(costs))
+    edge = lap_edge_cases(gen)
+    edge_names = {name for name, _ in edge}
+    for name, costs in lap_cases(gen) + edge:
+        r4c = solve_lap_batch(costs)
+        again = solve_lap_batch(costs)
+        want = solve_lap_batch_ref(costs)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
+        err = (assignment_cost(costs, r4c)
+               - assignment_cost(costs, want)).abs().max().item()
         worst = max(worst, err)
-        check(f"K6 {name} total cost", err,
-              1e-5 * want.abs().max().item())
+        differ = (r4c != want).sum().item()
+        if differ or not torch.equal(r4c, again):
+            raise SystemExit(f"K6 {name}: row4col differs from the plain "
+                             f"version's in {differ} entries (or between "
+                             f"two launches)")
+        if name in edge_names:
+            continue
+        log(f"  K6 {name}: row4col identical to the plain version "
+            f"(total cost difference {err:.3e}), two launches identical")
+    log(f"  K6 edge shapes {K6_EDGE_SHAPES}, random, ties, all-equal and "
+        f"negative costs, contiguous and transposed ({len(edge)} cases): "
+        f"row4col identical to the plain version, launches identical")
     return worst
 
 
@@ -767,20 +827,84 @@ def warp_cases(b: int, gen):
     return cases
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts one element past an
+    aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def warp_edge_cases(gen):
+    """(name, image, ids, matrices, flip) of K7 at K7_EDGE_GEOMS in fp32
+    and bf16: random flips, matrices with a strong translation (clamping
+    at the borders); at C = 2 and 4 also the image and the ids at a
+    misaligned address."""
+    from rsis_tpu_torch.data.device_aug import sample_affine_matrices
+    cases = []
+    for b, h, w, c in K7_EDGE_GEOMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"({b}, {h}, {w}, {c}) {str(dtype)[6:]}"
+            img = torch.randn(b, h, w, c, generator=gen,
+                              device="cuda").to(dtype)
+            ids = torch.randint(0, 21, (b, h, w), generator=gen,
+                                device="cuda", dtype=torch.uint8)
+            ms = sample_affine_matrices(gen, b, h, w, 15.0, 0.4, 5.0,
+                                        (0.8, 1.2))
+            flip = torch.rand(b, generator=gen, device="cuda") < 0.5
+            cases.append((tag, img, ids, ms, flip))
+            if c in (2, 4):
+                cases.append((f"{tag} misaligned", misaligned(img),
+                              misaligned(ids), ms, flip))
+    return cases
+
+
+def check_warp_edges(gen) -> float:
+    """K7 at K7_EDGE_GEOMS: bit-identical to its plain version, and two
+    launches identical. Returns the largest difference (0)."""
+    from rsis_tpu_torch.ops.warp import (address_alignment, affine_warp_ref,
+                                         warp_by_coefficients,
+                                         warp_coefficients, warp_plan)
+    worst = 0.0
+    for name, img, ids, ms, fl in warp_edge_cases(gen):
+        coef = warp_coefficients(img, ms, fl)
+        got = warp_by_coefficients(img, ids, coef)
+        again = warp_by_coefficients(img, ids, coef)
+        want = affine_warp_ref(img, ids, coef)
+        torch.cuda.synchronize()
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        worst = max(worst, err)
+        plan = warp_plan(img.shape[2], img.shape[3], img.element_size(),
+                         address_alignment(img))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        log(f"  K7 edge {name} (plan {plan}): "
+            f"{'bit-identical' if equal else 'DIFFERS'}, launches "
+            f"{'identical' if same else 'DIFFER'}")
+        if not (equal and same):
+            raise SystemExit(f"K7 edge {name}: kernel differs from its "
+                             f"plain version or between two launches")
+    return worst
+
+
 def check_warp(batches, gen) -> float:
     """K7 against its plain version: bit-identical outputs in every case
-    (both read the same coefficients). Returns the largest difference."""
+    (both read the same coefficients), at the train geometry and at
+    K7_EDGE_GEOMS. Returns the largest difference."""
     from rsis_tpu_torch.ops.warp import (affine_warp, nearest_index_maps,
                                          warp_coefficients)
-    worst = 0.0
+    worst = check_warp_edges(gen)
     for b in batches:
         for name, img, ids, ms, fl in warp_cases(b, gen):
             got = affine_warp(img, ids, ms, fl)
+            again = affine_warp(img, ids, ms, fl)
             want = affine_warp(img, ids, ms, fl, plain=True)
             torch.cuda.synchronize()
             err = max(max_err(g, w) for g, w in zip(got, want))
             worst = max(worst, err)
-            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            equal = all(torch.equal(g, w) and torch.equal(g, a)
+                        for g, w, a in zip(got, want, again))
             if name.startswith("identity"):
                 equal = equal and torch.equal(got[0], img) and torch.equal(
                     got[1], ids)
@@ -789,7 +913,8 @@ def check_warp(batches, gen) -> float:
             rows, cols = idx // TRAIN_HW[1], idx % TRAIN_HW[1]
             edge = ((rows == 0) | (rows == TRAIN_HW[0] - 1) | (cols == 0)
                     | (cols == TRAIN_HW[1] - 1)).float().mean().item()
-            log(f"  K7 {name}: {'bit-identical' if equal else 'DIFFERS'} "
+            log(f"  K7 {name}: {'bit-identical' if equal else 'DIFFERS'}"
+                f"{', launches identical' if equal else ''} "
                 f"(max_abs_err {err:.3e}; {edge:.3f} of the pixels read "
                 f"the border)")
             if not equal:
@@ -1206,7 +1331,9 @@ def time_lap(b: int, T: int, n: int, gen) -> dict:
     on loss-like costs: device ms against the plain (host) solver. The
     bound counts what these costs need: the costs read and row4col written
     once, and 6 fp32 operations per column per Dijkstra step that the
-    plain solver took on them."""
+    plain solver took on them. The figure of merit of the sequential
+    solver: ns a Dijkstra step of the batch's longest problem
+    (max_scans)."""
     from rsis_tpu_torch.ops.lap import solve_lap_batch, solve_lap_batch_ref
     costs = [c for name, c in lap_cases(gen, b, ((T, n),))
              if name.startswith("ties")][0]
@@ -1216,10 +1343,14 @@ def time_lap(b: int, T: int, n: int, gen) -> dict:
     pms = cuda_ms(lambda: solve_lap_batch_ref(costs), iters=3, warmup=1)
     bms, by = bound_ms(nbytes(costs) + b * n * 4, 6.0 * n * stats["scans"],
                        torch.float32)
+    ns_step = ms * 1e6 / stats["max_scans"]
     log(f"  K6 LAP ({b}, {T}, {n}): {ms:.4f} ms (plain {pms:.4f} on the "
-        f"host, bound {bms:.6f} by {by}; {stats['scans']} Dijkstra steps)")
+        f"host, bound {bms:.6f} by {by}; {stats['scans']} Dijkstra steps, "
+        f"{stats['max_scans']} in the longest problem: {ns_step:.1f} ns a "
+        f"step)")
     return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "scans": stats["scans"]}
+            "scans": stats["scans"], "max_scans": stats["max_scans"],
+            "ns_per_step": ns_step}
 
 
 def mul_geoms(height: int, width: int, widths) -> list:

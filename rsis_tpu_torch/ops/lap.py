@@ -10,10 +10,12 @@ columns. Ties of the reduced cost go to an unassigned column, then to the
 lowest index.
 
 On a CUDA tensor ``solve_lap_batch`` launches the hand-written kernel
-``csrc/lap.cu`` (one warp per problem, the whole batch in one launch, the
-result left on the device); on a CPU tensor it runs ``solve_lap_batch_ref``,
-the plain version: the same algorithm as a Python loop over numpy float32
-vectors, with the same fp32 operations in the same order.
+``csrc/lap.cu`` (one warp a problem, its costs staged once into shared
+memory from the caller's strides, its state in registers; the whole batch
+in one launch, the result left on the device); on a CPU tensor it runs
+``solve_lap_batch_ref``, the plain version: the same algorithm as a Python
+loop over numpy float32 vectors, with the same fp32 operations in the same
+order, so the two give the same row4col.
 """
 
 from __future__ import annotations
@@ -32,14 +34,16 @@ _INF = np.float32(1e9)
 
 def _solve_one(cost: np.ndarray, stats: dict | None = None) -> np.ndarray:
     """row4col of one (nr, nc) float32 cost matrix, nr <= nc. stats, when
-    given, counts the Dijkstra steps in stats["scans"] (each relaxes all
-    nc columns)."""
+    given, counts the Dijkstra steps (each relaxes all nc columns): their
+    total in stats["scans"], the most any one problem took in
+    stats["max_scans"]."""
     nr, nc = cost.shape
     u = np.zeros(nr, np.float32)
     v = np.zeros(nc, np.float32)
     r4c = np.full(nc, -1, np.int64)
     c4r = np.full(nr, -1, np.int64)
     cols = np.arange(nc)
+    scans = 0
     for cur_row in range(nr):
         spc = np.full(nc, _INF, np.float32)
         pred = np.zeros(nc, np.int64)
@@ -47,8 +51,7 @@ def _solve_one(cost: np.ndarray, stats: dict | None = None) -> np.ndarray:
         sr = np.zeros(nr, bool)
         sink, icur, min_val = -1, cur_row, np.float32(0.0)
         while sink == -1:
-            if stats is not None:
-                stats["scans"] = stats.get("scans", 0) + 1
+            scans += 1
             sr[icur] = True
             red = min_val + cost[icur] - u[icur] - v
             upd = ~sc & (red < spc)
@@ -79,6 +82,9 @@ def _solve_one(cost: np.ndarray, stats: dict | None = None) -> np.ndarray:
             r4c[j] = ipred
             c4r[ipred] = j
             j = -1 if ipred == cur_row else jnext
+    if stats is not None:
+        stats["scans"] = stats.get("scans", 0) + scans
+        stats["max_scans"] = max(stats.get("max_scans", 0), scans)
     return r4c
 
 
@@ -95,9 +101,38 @@ def solve_lap_batch_ref(costs: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lap")
     lib.rsis_lap.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                             + [ctypes.c_void_p])
+                             + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     lib.rsis_lap.restype = ctypes.c_int
     return lib
+
+
+def _check_shape(costs: torch.Tensor) -> tuple:
+    if costs.dim() != 3:
+        raise ValueError(
+            f"costs must be (B, nr, nc), not {tuple(costs.shape)}")
+    b, nr, nc = costs.shape
+    if not 0 < nr <= nc <= MAX_N:
+        raise ValueError(f"need 0 < nr <= nc <= {MAX_N}, got {nr}, {nc}")
+    return b, nr, nc
+
+
+def lap_launch_args(costs: torch.Tensor) -> tuple:
+    """(B, nr, nc, batch stride, row stride, column stride) of the kernel's
+    launch on costs, strides in elements (a dimension of size 1 counts as
+    stride 1). Raises TypeError on a dtype other than float32 and
+    ValueError on a shape the kernel does not take or on strides it cannot
+    read: neither the rows nor the columns at unit stride (its staging
+    reads along a unit stride)."""
+    b, nr, nc = _check_shape(costs)
+    if costs.dtype != torch.float32:
+        raise TypeError(f"LAP kernel takes float32, not {costs.dtype}")
+    sb, sr, sc = costs.stride()
+    sr = 1 if nr == 1 else sr
+    sc = 1 if nc == 1 else sc
+    if sr != 1 and sc != 1:
+        raise ValueError(f"LAP kernel needs the rows or the columns of the "
+                         f"costs at unit stride, got strides {costs.stride()}")
+    return b, nr, nc, sb, sr, sc
 
 
 def solve_lap_batch(costs: torch.Tensor) -> torch.Tensor:
@@ -110,28 +145,21 @@ def solve_lap_batch(costs: torch.Tensor) -> torch.Tensor:
       (B, nc) int32 row4col: the 0-indexed row assigned to each column, -1
       for the nc - nr unassigned columns.
 
-    CPU tensors take the plain version. CUDA tensors (float32, contiguous)
-    launch ``csrc/lap.cu`` and count one launch in
+    CPU tensors take the plain version. CUDA tensors (float32, the rows or
+    the columns at unit stride: ``lap_launch_args``; a transposed view is
+    read as it lies) launch ``csrc/lap.cu`` and count one launch in
     ``solve_lap_batch.launches``."""
-    if costs.dim() != 3:
-        raise ValueError(
-            f"costs must be (B, nr, nc), not {tuple(costs.shape)}")
-    b, nr, nc = costs.shape
-    if not 0 < nr <= nc <= MAX_N:
-        raise ValueError(f"need 0 < nr <= nc <= {MAX_N}, got {nr}, {nc}")
+    _check_shape(costs)
     if costs.device.type == "cpu":
         return solve_lap_batch_ref(costs)
     if costs.device.type != "cuda":
         raise ValueError(f"no kernel for device {costs.device}")
-    if costs.dtype != torch.float32:
-        raise TypeError(f"LAP kernel takes float32, not {costs.dtype}")
-    if not costs.is_contiguous():
-        raise ValueError("LAP kernel needs contiguous costs")
+    b, nr, nc, sb, sr, sc = lap_launch_args(costs)
     out = torch.empty((b, nc), dtype=torch.int32, device=costs.device)
     with torch.cuda.device(costs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rsis_lap(costs.data_ptr(), out.data_ptr(), b, nr, nc,
-                              stream)
+                              sb, sr, sc, stream)
     if err != 0:
         raise RuntimeError(f"LAP kernel launch failed: CUDA error {err}")
     solve_lap_batch.launches += 1

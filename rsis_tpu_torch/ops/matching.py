@@ -4,7 +4,8 @@ Counterpart of ``rsis_tpu/ops/matching.py`` (``_perm_from_row4col``,
 ``hungarian_pallas``, ``match_gt_to_predictions``). The (B, N, M) cost
 tensor (rows = GT slots, columns = predictions, N >= M) is solved as the
 transposed (M, N) rectangle by ``ops/lap.py::solve_lap_batch`` (the CUDA
-kernel on the card, its plain version on the CPU), and the row4col result
+kernel on the card, reading the transposed view in place; its plain
+version on the CPU), and the row4col result
 becomes the (B, N) ``perm`` in torch ops on the costs' device: perm[b, j]
 is the GT row matched to prediction j for j < M, then the unmatched GT
 rows in ascending order (the zero-cost-pad convention of the reference's
@@ -45,7 +46,8 @@ def hungarian(costs: torch.Tensor, plain: bool = False) -> torch.Tensor:
     if m > n:
         raise ValueError("more prediction columns than GT rows")
     solve = solve_lap_batch_ref if plain else solve_lap_batch
-    row4col = solve(costs.transpose(1, 2).float().contiguous())
+    # the kernel reads the transposed view as it lies: no copy
+    row4col = solve(costs.transpose(1, 2).float())
     return perm_from_row4col(row4col, m)
 
 
