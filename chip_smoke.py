@@ -65,6 +65,17 @@ Phases, each fatal on failure:
      the checkpoint files, the resumed epoch numbers and the growing
      metrics.jsonl are checked; the loop's ms per train step and images
      per second (data loading included) beside the step's alone;
+  4c. the trainer's options and the tools beside them, at the same width:
+     ``cli.train`` from a seeded torchvision-layout resnet101 file
+     (``-torch_encoder``, encoder frozen) with host augmentation and
+     ``--visdom`` (K7 never launched, the backbone still the file's, one
+     mask snapshot an epoch, the dashboard serving metrics.jsonl and the
+     snapshots, ``parse_train_log``), then ``--transfer`` from that run to
+     a CVPPP tree (a 2-output ``fc_class``), one train step under
+     ``utils.profiling.trace`` (K1's and K4's kernels in its table), and
+     ``cli.verify_parity --device`` on the eval phase's concat and mul
+     checkpoints (2 images, 512x1024, T=20, fp32: deltas within the
+     1e-3 budget, the forward's kernels launched);
   5. timings after warm-up: encoder, decode step, images per second and
      train ms per step from CUDA events or host clocks around whole,
      synchronised calls; each kernel's device time (CUDA-graph replay)
@@ -1257,6 +1268,260 @@ def trainer_phase(args, out_dir) -> dict:
             "step_images_per_s": b / step_ms * 1e3, "profile": profile}
 
 
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_captured(fn, argv):
+    """fn(argv) with its standard output captured and echoed; returns
+    (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return res, text
+
+
+def conv_weights_equal(enc_sd, source, prefix: str) -> int:
+    """Raise unless every 4-d weight of ``source`` equals the encoder's
+    ``prefix + key`` bit for bit; returns how many were compared."""
+    n = 0
+    for k, v in source.items():
+        if v.dim() == 4 and k.endswith("weight"):
+            if not torch.equal(enc_sd[prefix + k].cpu(), v.cpu()):
+                raise SystemExit(f"trainer options: {prefix}{k} moved")
+            n += 1
+    return n
+
+
+def options_phase(args, models, card) -> dict:
+    """Phase 4c: the trainer's options and the tools beside them at full
+    width (resnet101, hidden 128, bf16), each check fatal:
+
+    1. a torchvision-layout resnet101 backbone file under build/ (the
+       port's trunk under torch.manual_seed(--seed), plus torchvision's
+       ``fc.*``);
+    2. ``cli.train`` on the synthetic dataset (256x256, batch 8, 16 images
+       a split, 2 epochs, curriculum) with ``-finetune_after -1`` (the
+       encoder frozen), ``--augment --host_augment``, ``-torch_encoder``
+       the file and ``--visdom -port`` a free loopback port: the
+       ``Encoder initialized from`` line, K7 never launched and the train
+       step's other kernels launched, encoder.pt's backbone convolutions
+       equal to the file's bit for bit, one mask snapshot an epoch of the
+       grid's size, the dashboard's /metrics equal to metrics.jsonl and
+       its /snapshots listing both, ``parse_train_log`` one value an epoch
+       and split;
+    3. ``cli.train --transfer -transfer_from`` that run on a CVPPP A1 tree
+       from --seed (104 plants: 96 train, 8 val; 2 classes, 1 epoch,
+       encoder frozen): ``fc_class`` with 2 outputs, the backbone's
+       convolutions still the file's;
+    4. one train step of that run's configuration under
+       ``utils.profiling.trace``: its kernel table, K1's and K4's kernels
+       among the device rows;
+    5. ``cli.verify_parity --device`` on the eval phase's concat and mul
+       checkpoints (2 images, 512x1024, T=20, float32): the deltas, rc 0
+       (mean mask-IoU delta within 1e-3), and K1 and K2 (concat) or K8
+       and K2 (mul) launched as a forward launches them."""
+    import re
+    import shutil
+    import tempfile
+    import urllib.request
+    from rsis_tpu_torch.cli import verify_parity
+    from rsis_tpu_torch.cli.train import main as train_main
+    from rsis_tpu_torch.config import Config
+    from rsis_tpu_torch.models.backbones import resnet101
+    from rsis_tpu_torch.train import step as ts
+    from rsis_tpu_torch.train.checkpoint import load_weights
+    from rsis_tpu_torch.train.loop import init_dataloaders
+    from rsis_tpu_torch.utils import profiling
+    from rsis_tpu_torch.utils.monitor import snapshot_size
+    from rsis_tpu_torch.utils.plot_curves import parse_train_log
+    import numpy as np
+    from PIL import Image
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_options_",
+                            dir=os.path.join(here, "build"))
+    walls = {}
+    try:
+        # 1. the backbone file
+        t0 = time.perf_counter()
+        torch.manual_seed(args.seed)
+        backbone = dict(resnet101().state_dict())
+        backbone["fc.weight"] = torch.randn(1000, 2048) * 0.01
+        backbone["fc.bias"] = torch.zeros(1000)
+        path = os.path.join(root, "resnet101_backbone.pth")
+        torch.save(backbone, path)
+        walls["backbone_file_s"] = time.perf_counter() - t0
+
+        # 2. training from it, host augmentation, snapshots, dashboard
+        port = free_port()
+        mroot = os.path.join(root, "models")
+        common = ["-base_model", "resnet101", "-hidden_size", "128",
+                  "-compute_dtype", "bfloat16", "-imsize", "256",
+                  "-batch_size", "8", "-print_every", "1", "-seed",
+                  str(args.seed), "-finetune_after", "-1",
+                  "--curriculum_learning", "-models_root", mroot]
+        argv = common + ["-dataset", "synthetic", "-num_classes", "9",
+                         "-synthetic_length", "16", "-max_epoch", "2",
+                         "--augment", "--host_augment", "-torch_encoder",
+                         path, "--visdom", "-port", str(port),
+                         "-model_name", "opts"]
+        d = os.path.join(mroot, "opts")
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        _, out = run_captured(train_main, argv)
+        walls["train_s"] = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if f"Encoder initialized from {path}" not in out:
+            raise SystemExit("trainer options: no 'Encoder initialized "
+                             "from' line")
+        if launches["warp_by_coefficients"] != 0 or not all(
+                n > 0 for k, n in launches.items()
+                if k != "warp_by_coefficients"):
+            raise SystemExit(f"trainer options: launches {launches} (want "
+                             f"K7 0, every other kernel of the step > 0)")
+        enc = torch.load(os.path.join(d, "encoder.pt"), map_location="cpu")
+        n_conv = conv_weights_equal(enc, backbone, "base.")
+        with open(os.path.join(d, "metrics.jsonl")) as fp:
+            records = [json.loads(ln) for ln in fp]
+        snaps = []
+        for epoch in (0, 1):
+            T = {r["T"] for r in records if r["epoch"] == epoch}
+            name = f"masks_epoch{epoch:04d}.png"
+            with Image.open(os.path.join(d, name)) as im:
+                im.load()
+                size = im.size
+            if len(T) != 1 or size != snapshot_size(T.pop(), 256, 256):
+                raise SystemExit(f"trainer options: {name} is {size}")
+            snaps.append(name)
+        base = f"http://127.0.0.1:{port}"
+        served = json.loads(urllib.request.urlopen(base + "/metrics",
+                                                   timeout=30).read())
+        listed = json.loads(urllib.request.urlopen(base + "/snapshots",
+                                                   timeout=30).read())
+        if served != records or listed != snaps:
+            raise SystemExit(f"dashboard: {len(served)} records (want "
+                             f"{len(records)}), snapshots {listed}")
+        curves = parse_train_log(os.path.join(d, "train.log"))
+        counts = {f"{s}/{k}": len(v) for s in ("train", "val")
+                  for k, v in curves[s].items()}
+        if sorted(counts.values()) != [2] * 8:
+            raise SystemExit(f"parse_train_log: values {counts}")
+        log(f"options: trained 2 epochs from {os.path.basename(path)} in "
+            f"{walls['train_s']:.2f} s (host augmentation, snapshots, "
+            f"dashboard on port {port}); launches {launches}; {n_conv} "
+            f"backbone convolutions equal to the file's; snapshots {snaps} "
+            f"{size}; dashboard served {len(served)} records")
+
+        # 3. transfer onto CVPPP leaves
+        t0 = time.perf_counter()
+        leaves = write_leaves(root, np.random.default_rng(args.seed), n=104)
+        walls["leaves_tree_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_captured(train_main, common + [
+            "-dataset", "leaves", "-leaves_dir", leaves, "-num_classes", "2",
+            "-max_epoch", "1", "--transfer", "-transfer_from", "opts",
+            "-model_name", "leaves_transfer"])
+        walls["transfer_s"] = time.perf_counter() - t0
+        enc_t, dec_t = load_weights(Config(models_root=mroot),
+                                    "leaves_transfer")
+        n_out = dec_t["fc_class.weight"].shape[0]
+        if n_out != 2 or dec_t["fc_class.bias"].shape != (2,):
+            raise SystemExit(f"transfer: fc_class has {n_out} outputs")
+        conv_weights_equal(enc_t, backbone, "base.")
+        log(f"options: transfer to CVPPP (96 train, 8 val plants) in "
+            f"{walls['transfer_s']:.2f} s (tree {walls['leaves_tree_s']:.2f}"
+            f" s): fc_class {tuple(dec_t['fc_class.weight'].shape)}, the "
+            f"backbone still the file's")
+
+        # 4. one profiled train step
+        cfg = Config.load(os.path.join(d, "args.json"))
+        T = min(cfg.maxseqlen, cfg.limit_seqlen_to)
+        batch = [torch.from_numpy(a).cuda() for a in next(iter(
+            init_dataloaders(cfg)["train"]))]
+        enc_w, dec_w = load_weights(cfg)
+        state = ts.create_train_state(cfg, (enc_w, dec_w))
+        step, _ = ts.make_train_step(cfg, T=T)
+        flags = ts.StepFlags.from_config(cfg)
+        gen = cuda_generator(args.seed)
+        state, _ = step(state, batch, flags, gen)
+        trace_dir = os.path.join(root, "trace")
+        t0 = time.perf_counter()
+        with profiling.trace(trace_dir):
+            state, _ = step(state, batch, flags, gen)
+        walls["profiled_step_s"] = time.perf_counter() - t0
+        rows = profiling.op_table(profiling.load_trace_events(trace_dir),
+                                  top=12)
+        log(f"options: one profiled train step (B=8, T={T}, 256x256, "
+            f"bf16), device kernels by self time:")
+        for name, ms in rows:
+            log(f"  {ms:9.3f} ms  {name[:100]}")
+        all_rows = profiling.op_table(profiling.load_trace_events(
+            trace_dir), top=10 ** 6)
+        for kernel, epilogue in (("K1", "LstmForward"),
+                                 ("K4", "LstmBackward")):
+            mine = [(n, ms) for n, ms in all_rows if epilogue in n]
+            if not mine:
+                raise SystemExit(f"profile: no {kernel} ({epilogue}) "
+                                 f"kernel among the device rows")
+            log(f"  {kernel}: {sum(ms for _, ms in mine):.3f} ms in "
+                f"{len(mine)} kernel names, rank "
+                f"{all_rows.index(mine[0]) + 1} of {len(all_rows)}")
+        del state, batch
+
+        # 5. verify_parity on the card
+        parity = {}
+        for name, skip, n_cls in (("cs", "concat", 9), ("voc", "mul", 21)):
+            ck = os.path.join(models, name)
+            vargs = [os.path.join(ck, "encoder.pt"),
+                     os.path.join(ck, "decoder.pt"), "-base_model",
+                     "resnet101", "-hidden_size", "128", "-num_classes",
+                     str(n_cls), "-skip_mode", skip, "-maxseqlen", "20",
+                     "-imsize", "512", "-n_images", "2", "--device"]
+            fwd = forward_counters()
+            for fn in fwd.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            rc, out = run_captured(verify_parity.main, vargs)
+            wall = time.perf_counter() - t0
+            got = {k: fn.launches for k, fn in fwd.items()}
+            deltas = {key: float(m.group(1)) for key, m in (
+                (key, re.search(rf"{pat}\s*:\s*([0-9.eE+-]+)", out))
+                for key, pat in (("mask_iou", "mean mask-IoU delta"),
+                                 ("mask", r"max \|mask delta\|"),
+                                 ("class", r"max \|class delta\|"),
+                                 ("stop", r"max \|stop delta\|")))
+                if m}
+            if rc != 0 or len(deltas) != 4 or deltas["mask_iou"] > 1e-3 \
+                    or got != forward_launches(skip, 20, 1):
+                raise SystemExit(f"verify_parity {skip}: rc {rc}, deltas "
+                                 f"{deltas}, launches {got} (want "
+                                 f"{forward_launches(skip, 20, 1)})")
+            parity[skip] = {"wall_s": wall, "deltas": deltas,
+                            "launches": got}
+            walls[f"verify_parity_{skip}_s"] = wall
+            log(f"options: verify_parity --device {skip} (2 x 512x1024, "
+                f"T=20, fp32) in {wall:.2f} s: {deltas}; launches {got}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"options phase wall times ({card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()))
+    return {"walls": walls, "launches": launches, "parity": parity,
+            "profile_rows": rows}
+
+
 def time_backward_kernels(cell_geoms, b, gen) -> dict:
     """K4, K5 and K3 at the train step's five cells (bf16): device ms of
     one decode step's five launches of each, against the plain version,
@@ -1617,13 +1882,14 @@ def write_pascal(root, rng, n=2, size=(375, 500)):
     return d
 
 
-def eval_phase(args, out_dir) -> dict:
+def eval_phase(args, out_dir, models) -> dict:
     """Phase 3c: the evaluation entry points in process on the card. Under
     build/, from --seed: a Cityscapes val tree (2 images, 1024x2048), a
     CVPPP A1 tree (3 plants) and a Pascal tree (2 images, precomputed by
     the port's pascal_precompute); two full-width checkpoints written by
-    the port's train/checkpoint.py (random weights, bf16): "cs" (concat,
-    9 classes) and "voc" (mul, 21 classes). Then cli.eval_cityscapes (cs,
+    the port's train/checkpoint.py (random weights, bf16) into ``models``
+    (kept for phase 4c's verify_parity): "cs" (concat, 9 classes) and
+    "voc" (mul, 21 classes). Then cli.eval_cityscapes (cs,
     -imsize 512: input 512x1024, T=20, built-in AP), cli.eval_leaves (cs),
     cli.eval (voc, COCO stats) and cli.predict (voc, two images): every
     output file, finite scores and the kernels' launches per forward are
@@ -1646,7 +1912,6 @@ def eval_phase(args, out_dir) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_eval_",
                             dir=os.path.join(here, "build"))
     rng = np.random.default_rng(args.seed)
-    models = os.path.join(root, "models")
     try:
         t0 = time.perf_counter()
         cs_dir = write_cityscapes(root, rng)
@@ -1960,11 +2225,22 @@ def main() -> int:
     # ---- 3b, 3c. the mul forward and the evaluation entry points --------
     mul = mul_forward_phase(args, xs)
     del xs
-    evals = eval_phase(args, out_dir)
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    # the eval phase's two full-width checkpoints, for phase 4c too
+    models = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                              dir=os.path.join(here, "build"))
+    try:
+        evals = eval_phase(args, out_dir, models)
 
-    # ---- 4. the training path ------------------------------------------
-    train = train_phase(args, out_dir)
-    trainer = trainer_phase(args, out_dir)
+        # ---- 4. the training path --------------------------------------
+        train = train_phase(args, out_dir)
+        trainer = trainer_phase(args, out_dir)
+        options = options_phase(args, models, card)
+    finally:
+        shutil.rmtree(models, ignore_errors=True)
 
     # ---- 5. timings ----------------------------------------------------
     encoder = enc_p
@@ -2081,7 +2357,8 @@ def main() -> int:
                        "k2": k2,
                        "cell_bwd_bf16_ulps": cell_bwd_ulps,
                        "train": train, "train_batch": tb,
-                       "trainer": trainer, "warp": warp,
+                       "trainer": trainer, "options": options,
+                       "warp": warp,
                        "backward_cells": {k: v["cells"]
                                           for k, v in bwd.items()},
                        "lap": lap, "mul": mul, "k8_cells": k8["cells"],

@@ -10,7 +10,11 @@ ported: the inference forward (``evals/forward.py``), the training step
 with device augmentation in ``data/device_aug.py``) and evaluation and
 prediction (``cli/eval.py``, ``cli/eval_cityscapes.py``,
 ``cli/eval_leaves.py``, ``cli/predict.py`` over ``evals/`` and the
-dataset catalogs).
+dataset catalogs). The trainer also takes a pretrained encoder file
+(``models/torch_import.py``), a transfer from another model, host-side
+augmentation (``data/augment.py``) and ``--visdom`` (``utils/``);
+``cli/verify_parity.py`` holds the forward against a plain-torch replica
+of the reference (``models/torch_ref.py``).
 
 Kernel wrappers dispatch on the device of the tensors they are given: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the

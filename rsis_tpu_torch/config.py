@@ -44,8 +44,9 @@ class Config:
     # encoder fine-tuning and curriculum
     finetune_after: int = 0
     update_encoder: bool = False
-    # initialisation from another model or a torchvision backbone: not in
-    # the port yet (the train loop raises on them)
+    # initialisation from another model's checkpoint (a fresh fc_class
+    # when the dataset differs) or from a torchvision / reference encoder
+    # file (train/loop.py, models/torch_import.py)
     transfer: bool = False
     transfer_from: str = "model"
     torch_encoder: str = ""
@@ -66,11 +67,12 @@ class Config:
     patience_stop: int = 60
     max_epoch: int = 4000
 
-    # logging; visdom (mask snapshots, the dashboard) is not in the port
-    # yet and the train loop raises on it
+    # logging; visdom: a mask snapshot a epoch and the loopback dashboard
+    # on ``port`` (utils/monitor.py, utils/dashboard.py)
     print_every: int = 10
     log_term: bool = False
     visdom: bool = False
+    port: int = 8097
 
     # loss weights
     class_weight: float = 0.1
@@ -80,7 +82,8 @@ class Config:
 
     # augmentation: flip + one fused affine per sample inside the train
     # step (data/device_aug.py, the warp kernel K7); augment_on_device
-    # False asks for the host path, which the port does not have yet
+    # False (--host_augment) flips and warps in the train loader's numpy
+    # instead (data/augment.py)
     augment: bool = False
     augment_on_device: bool = True
     rotation: int = 10
@@ -215,6 +218,7 @@ def get_parser() -> argparse.ArgumentParser:
     flag("-print_every", "print_every", type=int)
     switch("--log_term", "log_term")
     switch("--visdom", "visdom")
+    flag("-port", "port", type=int)
     # loss weights
     flag("-class_weight", "class_weight", type=float)
     flag("-iou_weight", "iou_weight", type=float)

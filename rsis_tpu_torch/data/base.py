@@ -13,12 +13,15 @@ truncated or padded to gt_maxseqlen; the first padding slot keeps class
 weight 1 so the model learns the <eos> class.
 
 Pillow is imported only where an image must be resized: a sample already
-at its size (the synthetic dataset) needs no Pillow. With ``crop`` set, a
-sample is cropped to imsize x imsize after the resize, from the dataset's
-numpy generator seeded as the JAX package seeds it (Pascal and CVPPP set
-it for batches above 1, in evaluation too). The host-side flip and affine
-(``--host_augment``) are not in the port yet; the train step augments on
-the device.
+at its size (the synthetic dataset) needs no Pillow. After the resize, in
+the JAX package's order and from the dataset's one numpy generator
+(seeded as the JAX package seeds it), so that both give the same bytes:
+with ``augment`` (``--host_augment``, the train split) a coin flips the
+sample horizontally; with ``crop`` (Pascal and CVPPP set it for batches
+above 1, in evaluation too) it is cropped to imsize x imsize; with
+``augment`` one fused affine (``data/augment.RandomAffine``, nearest, so
+the image stays uint8) warps the image and both maps. Without
+``augment`` the train step augments on the device.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from .augment import random_crop
+from .augment import RandomAffine, horizontal_flip, random_crop
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -113,15 +116,28 @@ class InstanceDataset:
 
     classes: Sequence[str] = ()
 
-    def __init__(self, cfg, split: str = "train", imsize: int = 256,
-                 resize: bool = False, crop: bool = False, seed: int = 0):
+    def __init__(self, cfg, split: str = "train", augment: bool = False,
+                 imsize: int = 256, resize: bool = False, crop: bool = False,
+                 seed: int = 0):
         self.cfg = cfg
         self.split = split
         self.imsize = imsize
         self.resize = resize
         self.crop = crop
+        self.flip = augment
         self.max_seq_len = cfg.gt_maxseqlen
         self.rng = np.random.default_rng(seed)
+        self.affine = None
+        if augment:
+            # zoom only where the image is resized, and for Pascal, whose
+            # range also zooms in
+            zoom = (None if (not resize and cfg.dataset != "pascal")
+                    else ((cfg.zoom, max(cfg.zoom * 2, 1.0))
+                          if cfg.dataset == "pascal" else (cfg.zoom, 1.0)))
+            self.affine = RandomAffine(
+                rotation_range=cfg.rotation,
+                translation_range=cfg.translation, shear_range=cfg.shear,
+                zoom_range=zoom, interp="nearest", rng=self.rng)
 
     def get_raw_sample(self, index: int):
         raise NotImplementedError
@@ -143,10 +159,17 @@ class InstanceDataset:
         h, w = img.shape[:2]
         ins = resize_masks_nearest(np.asarray(ins), h, w)
         seg = resize_masks_nearest(np.asarray(seg), h, w)
-        if self.crop:
-            img_chw, ins, seg = random_crop(
-                [np.moveaxis(img, -1, 0), ins, seg],
-                (self.imsize, self.imsize), self.rng)
+        if self.flip or self.crop:
+            img_chw = np.moveaxis(img, -1, 0)
+            # the draws' order (coin, crop, affine) is the JAX package's
+            if self.flip and self.rng.random() < 0.5:
+                img_chw, ins, seg = horizontal_flip([img_chw, ins, seg])
+            if self.crop:
+                img_chw, ins, seg = random_crop(
+                    [img_chw, ins, seg], (self.imsize, self.imsize),
+                    self.rng)
+            if self.affine is not None:
+                img_chw, ins, seg = self.affine(img_chw, ins, seg)
             img = np.ascontiguousarray(np.moveaxis(img_chw, 0, -1))
         if int(np.max(seg, initial=0)) > 255 or int(np.min(seg,
                                                           initial=0)) < 0:

@@ -4,8 +4,9 @@ synthetic blobs, and the factory.
 Counterpart of ``rsis_tpu/data/catalogs.py`` (``PascalVOC``,
 ``CityScapes``, ``LeavesDataset``, ``SyntheticBlobs``, the class tables,
 ``CITYSCAPES_LABEL_IDS``, ``get_dataset``): the same file discovery, class
-tables, id remapping, crops and seeds, so each dataset gives the JAX
-package's raw samples and network inputs. Raw images are uint8 (H, W, 3)
+tables, id remapping, crops, host augmentation and seeds (``cfg.seed``
+for every dataset), so each dataset gives the JAX package's raw samples
+and network inputs. Raw images are uint8 (H, W, 3)
 numpy arrays (the JAX package keeps PIL images); Pillow is imported only
 to read image files. ``SyntheticBlobs`` makes the same procedural
 instance maps from the same seeds, so its uint8 wire samples are
@@ -56,9 +57,10 @@ class PascalVOC(InstanceDataset):
 
     classes = PASCAL_CLASSES
 
-    def __init__(self, cfg, split="train", imsize=256, resize=False, seed=0):
-        super().__init__(cfg, split=split, imsize=imsize, resize=resize,
-                         crop=cfg.batch_size > 1, seed=seed)
+    def __init__(self, cfg, split="train", augment=False, imsize=256,
+                 resize=False, seed=0):
+        super().__init__(cfg, split=split, augment=augment, imsize=imsize,
+                         resize=resize, crop=cfg.batch_size > 1, seed=seed)
         self.image_dir = os.path.join(cfg.pascal_dir, "JPEGImages")
         self.masks_dir = os.path.join(cfg.pascal_dir, "ProcMasks")
         split_f = os.path.join(cfg.pascal_dir, "ImageSets", "Segmentation",
@@ -80,9 +82,10 @@ class CityScapes(InstanceDataset):
 
     classes = CITYSCAPES_CLASSES
 
-    def __init__(self, cfg, split="train", imsize=256, resize=False, seed=0):
-        super().__init__(cfg, split=split, imsize=imsize, resize=resize,
-                         crop=cfg.crop, seed=seed)
+    def __init__(self, cfg, split="train", augment=False, imsize=256,
+                 resize=False, seed=0):
+        super().__init__(cfg, split=split, augment=augment, imsize=imsize,
+                         resize=resize, crop=cfg.crop, seed=seed)
         self.image_files = sorted(glob.glob(os.path.join(
             cfg.cityscapes_dir, "leftImg8bit", split, "*", "*.png")))
         self.ins_files = [
@@ -115,9 +118,10 @@ class LeavesDataset(InstanceDataset):
 
     classes = LEAVES_CLASSES
 
-    def __init__(self, cfg, split="train", imsize=256, resize=False, seed=0):
-        super().__init__(cfg, split=split, imsize=imsize, resize=resize,
-                         crop=cfg.batch_size > 1, seed=seed)
+    def __init__(self, cfg, split="train", augment=False, imsize=256,
+                 resize=False, seed=0):
+        super().__init__(cfg, split=split, augment=augment, imsize=imsize,
+                         resize=resize, crop=cfg.batch_size > 1, seed=seed)
         all_images = sorted(glob.glob(os.path.join(cfg.leaves_dir,
                                                    "*_rgb.png")))
         all_gt = [f.replace("_rgb", "_label") for f in all_images]
@@ -149,9 +153,10 @@ class SyntheticBlobs(InstanceDataset):
     # per-split seed offsets so val/test content differs from train
     _SPLIT_SEED = {"train": 0, "val": 50_000, "test": 100_000}
 
-    def __init__(self, cfg, split="train", imsize=64, resize=True,
-                 length=16, max_instances=4):
-        super().__init__(cfg, split=split, imsize=imsize, resize=resize)
+    def __init__(self, cfg, split="train", augment=False, imsize=64,
+                 resize=True, seed=0, length=16, max_instances=4):
+        super().__init__(cfg, split=split, augment=augment, imsize=imsize,
+                         resize=resize, seed=seed)
         self.classes = ["<eos>"] + [f"class{i}"
                                     for i in range(1, cfg.num_classes)]
         self.image_files = [f"synthetic_{split}_{i:04d}"
@@ -194,11 +199,14 @@ FILE_DATASETS = {
 }
 
 
-def get_dataset(cfg, split: str) -> InstanceDataset:
-    """The dataset of ``cfg.dataset`` for one split, on the uint8 wire."""
+def get_dataset(cfg, split: str, augment: bool = False) -> InstanceDataset:
+    """The dataset of ``cfg.dataset`` for one split, on the uint8 wire,
+    its generator seeded with ``cfg.seed``; ``augment`` flips and warps
+    each sample on the host."""
+    common = dict(split=split, augment=augment, imsize=cfg.imsize,
+                  resize=cfg.resize, seed=cfg.seed)
     if cfg.dataset == "synthetic":
-        return SyntheticBlobs(cfg, split=split, imsize=cfg.imsize,
-                              resize=cfg.resize, length=cfg.synthetic_length,
-                              max_instances=cfg.synthetic_max_instances)
-    return FILE_DATASETS[cfg.dataset](cfg, split=split, imsize=cfg.imsize,
-                                      resize=cfg.resize, seed=cfg.seed)
+        return SyntheticBlobs(cfg, length=cfg.synthetic_length,
+                              max_instances=cfg.synthetic_max_instances,
+                              **common)
+    return FILE_DATASETS[cfg.dataset](cfg, **common)

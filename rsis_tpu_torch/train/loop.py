@@ -13,17 +13,26 @@ Counterpart of ``rsis_tpu/train/loop.py`` (``init_dataloaders``,
   ``maxseqlen``, with one ``make_train_step`` built and kept per T;
 - best-val checkpointing with ``min_delta``, an optional smoothed val
   curve, and the early stop after ``patience_stop`` epochs;
-- resume from the model directory, its ``args.json`` taking precedence;
+- three ways to start, in the JAX package's order: resume from the model
+  directory (its ``args.json`` taking precedence); ``--transfer`` from
+  another model's checkpoint (``-transfer_from``), with a fresh
+  ``fc_class`` when its dataset differs and fresh optimizer states; or a
+  fresh start, its encoder optionally from a pretrained file
+  (``-torch_encoder``, ``models/torch_import.py``);
+- augmentation in the train step on the device, or with
+  ``--host_augment`` in the train loader on the host (``data/augment.py``);
 - the log lines of the reference (``Epoch %d:\\ttotal:...\\t(split)``,
   ``iter ...``, ``Saving checkpoint.``, ...), which
-  ``utils/plot_curves.py`` of the JAX package parses; they go to the
-  model directory's log file unless ``log_term``.
+  ``utils/plot_curves.py`` parses; they go to the model directory's log
+  file unless ``log_term``;
+- with ``--visdom``, a mask snapshot of one val sample after each epoch
+  (``utils/monitor.py``) and the dashboard on ``-port``
+  (``utils/dashboard.py``, left serving after the run, like the JAX
+  package's).
 
 Batches cross to the device from pinned host memory without blocking the
 host, two batches ahead. One ``torch.Generator`` on the device, seeded
-with ``cfg.seed``, feeds every step's augmentation and dropouts. Not in
-the port yet (they raise): ``transfer``, ``torch_encoder``, ``visdom`` and
-the host-side augmentation.
+with ``cfg.seed``, feeds every step's device augmentation and dropouts.
 """
 
 from __future__ import annotations
@@ -32,43 +41,50 @@ import collections
 import os
 import sys
 import time
-from typing import Dict
+import traceback
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data.base import normalize_image, unpack_target
 from ..data.catalogs import get_dataset
 from ..data.pipeline import DataLoader
 from ..device import resolve_device
+from ..evals.forward import make_forward
 from ..models.rsis import build_models
+from ..models.torch_import import init_encoder_from_torch
+from ..utils.dashboard import Dashboard
 from ..utils.monitor import Monitor
-from .checkpoint import (checkpoint_exists, load_checkpoint, model_dir,
-                         save_checkpoint)
+from .checkpoint import (checkpoint_exists, load_checkpoint, load_weights,
+                         model_dir, save_checkpoint)
 from .step import StepFlags, TrainState, create_train_state, make_train_step
 
 SPLITS = ("train", "val")
 
 
 def init_dataloaders(cfg: Config):
-    """The loaders by split, on the uint8 wire; augmentation happens in the
-    train step."""
-    return {split: DataLoader(get_dataset(cfg, split=split),
-                              batch_size=cfg.batch_size, shuffle=True,
-                              drop_last=True, num_workers=cfg.num_workers,
-                              seed=cfg.seed)
+    """The loaders by split, on the uint8 wire. The train split flips and
+    warps on the host when ``cfg.augment`` and not
+    ``cfg.augment_on_device``; otherwise the train step augments."""
+    host_augment = cfg.augment and not cfg.augment_on_device
+    return {split: DataLoader(
+                get_dataset(cfg, split=split,
+                            augment=host_augment and split == "train"),
+                batch_size=cfg.batch_size, shuffle=True, drop_last=True,
+                num_workers=cfg.num_workers, seed=cfg.seed)
             for split in SPLITS}
 
 
-def _unported(cfg: Config) -> None:
-    missing = [name for name, on in (
-        ("transfer", cfg.transfer), ("torch_encoder", cfg.torch_encoder),
-        ("visdom", cfg.visdom),
-        ("host augmentation", cfg.augment and not cfg.augment_on_device))
-        if on]
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: not in the port yet (ROADMAP.md)")
+def init_weights(cfg: Config):
+    """(encoder, decoder) state_dicts of the modules' initialisation under
+    ``torch.manual_seed(cfg.seed)``, the global generator left as it
+    was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        encoder, decoder = build_models(cfg)
+    return encoder.state_dict(), decoder.state_dict()
 
 
 class Trainer:
@@ -78,12 +94,13 @@ class Trainer:
     ``torch.manual_seed(cfg.seed)``."""
 
     def __init__(self, cfg: Config, device=None, weights=None):
-        _unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device, "Trainer")
         self.weights = weights
         self._steps: Dict[int, tuple] = {}  # T -> (train_step, eval_step)
+        self._forwards: Dict[int, object] = {}  # T -> snapshot forward
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.dashboard = None
 
     def _get_steps(self, T: int):
         if T not in self._steps:
@@ -97,24 +114,42 @@ class Trainer:
             return min(cfg.maxseqlen, cfg.limit_seqlen_to)
         return cfg.maxseqlen
 
-    def _fresh_state(self, cfg: Config) -> TrainState:
-        weights = self.weights
-        if weights is None:
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(cfg.seed)
-                encoder, decoder = build_models(cfg)
-            weights = (encoder.state_dict(), decoder.state_dict())
-        return create_train_state(cfg, weights, device=self.device)
+    def _initial_state(self, cfg: Config) -> Tuple[TrainState, Config, int]:
+        """(state, config, first epoch) a run starts from: resumed from the
+        model directory (its saved config), transferred from
+        ``cfg.transfer_from``'s checkpoint, or fresh (``self.weights`` or
+        the seeded init, its encoder from ``cfg.torch_encoder`` if set),
+        tried in that order. A transfer whose source has no checkpoint
+        starts fresh, as the reference does."""
+        if cfg.resume and checkpoint_exists(cfg):
+            template = create_train_state(
+                cfg, self.weights or init_weights(cfg), device=self.device)
+            state, saved_cfg = load_checkpoint(cfg, template)
+            # the saved config takes precedence, like the reference's
+            cfg = saved_cfg.replace(resume=True)
+            return state, cfg, cfg.epoch_resume
+        if cfg.transfer and checkpoint_exists(cfg, cfg.transfer_from):
+            src_cfg = Config.load(os.path.join(
+                model_dir(cfg, cfg.transfer_from), "args.json"))
+            encoder, decoder = load_weights(cfg, cfg.transfer_from)
+            if src_cfg.dataset != cfg.dataset:
+                # a fresh class head for the new dataset's classes
+                fresh = init_weights(cfg)[1]
+                decoder = {**decoder, **{k: v for k, v in fresh.items()
+                                         if k.startswith("fc_class.")}}
+            return (create_train_state(cfg, (encoder, decoder),
+                                       device=self.device), cfg, 0)
+        encoder, decoder = self.weights or init_weights(cfg)
+        if cfg.torch_encoder:
+            encoder = init_encoder_from_torch(cfg.torch_encoder,
+                                              cfg.base_model, encoder)
+            print("Encoder initialized from", cfg.torch_encoder)
+        return (create_train_state(cfg, (encoder, decoder),
+                                   device=self.device), cfg, 0)
 
     def run(self) -> TrainState:
-        cfg = self.cfg
-        epoch_resume = 0
-        state = self._fresh_state(cfg)
-        if cfg.resume and checkpoint_exists(cfg):
-            state, saved_cfg = load_checkpoint(cfg, state)
-            # the saved config takes precedence, like the reference's
-            cfg = self.cfg = saved_cfg.replace(resume=True)
-            epoch_resume = cfg.epoch_resume
+        state, cfg, epoch_resume = self._initial_state(self.cfg)
+        self.cfg = cfg
 
         os.makedirs(model_dir(cfg), exist_ok=True)
         cfg.save(os.path.join(model_dir(cfg), "args.json"))
@@ -135,7 +170,14 @@ class Trainer:
             if cfg.curriculum_learning and epoch_resume == 0:
                 cfg = self.cfg = cfg.replace(limit_seqlen_to=2)
             loaders = init_dataloaders(cfg)
-            monitor = Monitor(model_dir(cfg))
+            monitor = Monitor(model_dir(cfg), enable_snapshots=cfg.visdom)
+            if cfg.visdom:
+                # a busy port must not stop the run: monitoring is optional
+                try:
+                    self.dashboard = Dashboard(model_dir(cfg),
+                                               port=cfg.port).start()
+                except OSError as e:
+                    print(f"Dashboard disabled (port {cfg.port}: {e})")
             try:
                 state = self._epochs(state, loaders, monitor, epoch_resume)
             finally:
@@ -235,6 +277,9 @@ class Trainer:
                 print("Epoch %d:\ttotal:%.4f\tclass:%.4f\tiou:%.4f\t"
                       "stop:%.4f\t(%s)" % (ep, mt, mc, mi, mx, split))
 
+            if cfg.visdom:
+                self._epoch_snapshot(monitor, state, loaders, ep, T)
+
             # best-val checkpointing
             if mt < (best_val_loss - cfg.min_delta):
                 print("Saving checkpoint.")
@@ -288,6 +333,34 @@ class Trainer:
             if acc_patience > cfg.patience_stop:
                 break
         return state
+
+    def _epoch_snapshot(self, monitor: Monitor, state: TrainState,
+                        loaders, epoch: int, T: int) -> None:
+        """Predicted and ground-truth masks of the first sample of a val
+        batch, through the inference forward on the trainer's device
+        (kernels included); like the JAX package's, it draws a val batch
+        (one shuffle of the val loader) and a failure is printed, never
+        raised: snapshots must not stop training."""
+        try:
+            if T not in self._forwards:
+                with torch.random.fork_rng(devices=[]):
+                    self._forwards[T] = make_forward(self.cfg, T=T,
+                                                     device=self.device)
+            imgs, tgts = next(iter(loaders["val"]))
+            x = normalize_image(imgs[:1])
+            masks, clss, _ = (t.float().cpu().numpy() for t in
+                              self._forwards[T]((state.encoder,
+                                                 state.decoder), x))
+            y_mask, y_class, _, _ = unpack_target(tgts[:1])
+            h, w = x.shape[1], x.shape[2]
+            monitor.snapshot(
+                epoch, masks[0], y_mask[0, :T].reshape(-1, h, w),
+                pred_classes=np.argmax(clss[0], -1),
+                true_classes=y_class[0, :T],
+                class_names=loaders["val"].dataset.get_classes())
+        except Exception as e:  # snapshots must never kill training
+            traceback.print_exc()
+            print(f"snapshot failed: {e}")
 
     def _device_prefetch(self, loader, depth: int = 2):
         """Copy ``depth`` batches ahead to the device: each uint8 batch is

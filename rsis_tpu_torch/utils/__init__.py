@@ -1,1 +1,2 @@
-"""Utilities of the port: the training monitor."""
+"""Utilities of the port: the training monitor and its dashboard, the
+train-log curves and profiling."""

@@ -4,7 +4,8 @@
   and chip_k5_step.py, imports jax, flax or rsis_tpu: the port keeps its
   own copies of what it needs;
 - an entry point asked for no device runs on CUDA, and raises where there
-  is none, instead of running on the CPU;
+  is none, instead of running on the CPU (the trainer with each of its
+  options, ``cli.verify_parity --device`` too);
 - importing the kernel modules needs no nvcc and compiles nothing: kernels
   build on their first CUDA use;
 - a kernel wrapper given a tensor that is neither on the CPU nor on a CUDA
@@ -88,6 +89,29 @@ def test_trainer_and_cli_train_without_device_need_cuda(tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+@pytest.mark.parametrize("change", [
+    {"augment": True, "augment_on_device": False}, {"transfer": True},
+    {"torch_encoder": "resnet101.pth"}, {"visdom": True}])
+def test_trainer_options_without_device_need_cuda(change, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is usable")
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.train.loop import Trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(Config(base_model="tiny", hidden_size=16,
+                       models_root=str(tmp_path), **change))
+    assert not any(tmp_path.iterdir())
+
+
+def test_verify_parity_on_the_device_needs_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is usable")
+    from rsis_tpu_torch.cli.verify_parity import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([str(tmp_path / "encoder.pt"), str(tmp_path / "decoder.pt"),
+              "--device"])
+
+
 def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
     code = (
         "import subprocess\n"
@@ -108,6 +132,10 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
         "import rsis_tpu_torch.cli.eval_leaves, rsis_tpu_torch.cli.predict\n"
         "import rsis_tpu_torch.evals.visualize\n"
         "import rsis_tpu_torch.data.tools.pascal_precompute\n"
+        "import rsis_tpu_torch.cli.verify_parity\n"
+        "import rsis_tpu_torch.models.torch_import\n"
+        "import rsis_tpu_torch.utils.profiling\n"
+        "import rsis_tpu_torch.utils.plot_curves\n"
         "import rsis_tpu_torch.kernels._binding as rle\n"
         "assert rle._lib is None\n"
         "assert b.load.cache_info().currsize == 0\n"

@@ -145,14 +145,3 @@ def test_synthetic_wire_batch_matches_bench():
     for g, w in zip(got, want):
         assert g.dtype == np.uint8
         np.testing.assert_array_equal(g, w)
-
-
-@pytest.mark.parametrize("change", [
-    {"augment": True, "augment_on_device": False}, {"transfer": True},
-    {"torch_encoder": "resnet101.pth"}, {"visdom": True}])
-def test_unported_options_raise(change):
-    # augmentation on the device and the three dropouts are ported
-    # (tests/test_torch_loop.py); what the train loop still lacks raises
-    from rsis_tpu_torch.train.loop import Trainer
-    with pytest.raises(NotImplementedError, match="port yet"):
-        Trainer(CFG.replace(**change), device="cpu")
