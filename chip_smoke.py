@@ -76,6 +76,29 @@ Phases, each fatal on failure:
      ``cli.verify_parity --device`` on the eval phase's concat and mul
      checkpoints (2 images, 512x1024, T=20, fp32: deltas within the
      1e-3 budget, the forward's kernels launched);
+  4d. data parallelism and the H-sharded streaming forward on the one
+     card: K2 with a slab's global row offset against its plain version
+     at K2_SLAB_GEOMS (both layouts, fp32 and bf16), the slabs together
+     bit-identical to K2 on the whole input; the train smoke step (B=8,
+     T=5, bf16, augmentation on) under a real world-1 NCCL process group,
+     bit-identical in metrics, parameters and BatchNorm statistics to the
+     step without one (cuDNN deterministic; a second step without a group
+     is the control), K1-K7's launches printed, and ``cli.train`` as rank 0
+     of a world-1 NCCL group (``-coordinator -num_processes 1 -process_id
+     0``, 1 epoch) with metrics.jsonl equal to a run without a group; then
+     two ranks, both on
+     cuda:0 over gloo (NCCL will not place two ranks on one GPU), started
+     as this script (``--parallel-rank``) after the kernels are built:
+     the fp32 step (TF32 off, B=4 global, T=2, 256x512, augmentation and
+     the three dropouts on) against one process's step on the global
+     batch with the same BatchNorm arithmetic (loss 1e-4 relative,
+     gradients 1e-3 of each tensor's max; against F.batch_norm the loss
+     within 1e-4 and the gradients' distance printed), the ranks'
+     states bit-identical after the step (SHA-256); and the streaming
+     forward of one 1024x2048 frame (9 classes, T=20, fp32, concat and
+     mul) on two row slabs against the unsharded forward within 1e-4,
+     K1 (concat) or K8 (mul) 5 T and K2 T launches a rank, each rank's
+     peak memory beside the unsharded forward's;
   5. timings after warm-up: encoder, decode step, images per second and
      train ms per step from CUDA events or host clocks around whole,
      synchronised calls; each kernel's device time (CUDA-graph replay)
@@ -100,6 +123,7 @@ Usage: python3 chip_smoke.py [--batch 4] [--steps 10] [--batches 3]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -182,6 +206,7 @@ K7_EDGE_GEOMS = [(1, 1, 1, 3), (2, 3, 7, 1), (1, 5, 9, 4), (2, 1, 513, 3),
                  (1, 4, 513, 4), (3, 6, 9, 3), (1, 2, 64, 1), (2, 3, 40, 2),
                  (2, 5, 40, 4)]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
+PARALLEL_TIMEOUT = 600             # phase 4d's ranks, seconds
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
 # for the default dataset (pascal, zoom 0.7)
@@ -2024,6 +2049,478 @@ def eval_phase(args, out_dir, models) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# K2 on the slabs of an H-sharded head input ((B, H, C, W), ranks): the
+# streaming forward's head at 1024x2048 on 2 ranks, a batch of 2 on 4
+# ranks, and slabs of one row on 3 ranks; in check_k2_slabs
+K2_SLAB_GEOMS = [((1, 512, 8, 1024), 2), ((2, 64, 8, 48), 4),
+                 ((1, 3, 5, 20), 3)]
+# phase 4d: the world-2 step (global batch, T) and the streamed frame
+PARALLEL_STEP = (4, 2)
+STREAM_HW = (1024, 2048)
+STREAM_T = 20
+STREAM_CLASSES = 9
+
+
+def slab_rows(full: torch.Tensor, rank: int, ranks: int, dim: int):
+    """Rank's rows of ``full`` along dim with one halo row a side (zeros
+    beyond the image), as the streaming forward hands them to K2."""
+    n = full.shape[dim] // ranks
+    lo, hi = rank * n - 1, (rank + 1) * n + 1
+    parts = []
+    if lo < 0:
+        parts.append(torch.zeros_like(full.narrow(dim, 0, 1)))
+    parts.append(full.narrow(dim, max(lo, 0),
+                             min(hi, full.shape[dim]) - max(lo, 0)))
+    if hi > full.shape[dim]:
+        parts.append(torch.zeros_like(full.narrow(dim, 0, 1)))
+    return torch.cat(parts, dim).contiguous()
+
+
+def check_k2_slabs(gen) -> float:
+    """K2 with a slab's global row offset (``slab=``) against its plain
+    version at K2_SLAB_GEOMS in both layouts, fp32 (FP32_TOL) and bf16
+    (one ulp of max|ref|), and the ranks' slabs together bit-identical to
+    K2 on the whole input (the same arithmetic for every output row).
+    Returns the worst bf16 error."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for shape, ranks in K2_SLAB_GEOMS:
+            for layout in HEAD_LAYOUTS:
+                (hs, weight, bias), kern, ref = head_case(shape, layout,
+                                                          dtype, gen)
+                dim = 1 if layout == "rowmajor" else 2
+                whole = kern(hs, weight, bias)
+                parts = []
+                for r in range(ranks):
+                    ext = slab_rows(hs, r, ranks, dim)
+                    row0 = r * (hs.shape[dim] // ranks)
+                    got = kern(ext, weight, bias,
+                               slab=(row0, hs.shape[dim]))
+                    want = ref(ext, weight, bias,
+                               slab=(row0, hs.shape[dim]))
+                    err = max_err(got, want)
+                    check(f"K2 slab {r}/{ranks} of {shape} {layout} {tag}",
+                          err, tol_for(dtype, want))
+                    parts.append(got)
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, err)
+                if not torch.equal(torch.cat(parts, dim), whole):
+                    raise SystemExit(f"K2 slabs of {shape} {layout} {tag}: "
+                                     f"not bit-identical to the whole head")
+    log(f"  K2 slabs: every slab within its limit, the slabs of each input "
+        f"bit-identical to K2 on the whole input")
+    return worst
+
+
+def state_digest(state) -> str:
+    """SHA-256 of every tensor of a train state (``TrainState.tensors``)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in state.tensors().items():
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def parallel_step_setup(args):
+    """The world-2 step's config (fp32, augmentation and the three
+    dropouts on), seeded weights and global wire batch (host)."""
+    import numpy as np
+    from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
+    from rsis_tpu_torch.models.rsis import build_models
+    b, T = PARALLEL_STEP
+    cfg = train_config(b, T, "float32").replace(
+        dropout=0.2, dropout_cls=0.2, dropout_stop=0.2)
+    torch.manual_seed(args.seed)
+    enc, dec = build_models(cfg)
+    batch = synthetic_wire_batch(np.random.default_rng(args.seed), b,
+                                 *TRAIN_HW, cfg.gt_maxseqlen,
+                                 cfg.num_classes)
+    return cfg, (enc.state_dict(), dec.state_dict()), batch
+
+
+def stream_setup(args, skip_mode: str):
+    """The streaming forward's config (resnet101, hidden 128, 9 classes,
+    T=20, fp32), seeded weights and one seeded 1024x2048 frame (host)."""
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.models.rsis import build_models
+    cfg = Config(base_model="resnet101", hidden_size=128,
+                 num_classes=STREAM_CLASSES, skip_mode=skip_mode,
+                 maxseqlen=STREAM_T, compute_dtype="float32")
+    torch.manual_seed(args.seed)
+    enc, dec = build_models(cfg)
+    x = torch.randn((1,) + STREAM_HW + (3,),
+                    generator=torch.Generator().manual_seed(args.seed))
+    return cfg, (enc.state_dict(), dec.state_dict()), x
+
+
+def parallel_rank(args) -> int:
+    """One rank of phase 4d's world-2 run (both ranks on cuda:0 over
+    gloo): the step on its rows of the global batch and the streaming
+    forward on its rows of the frame; results into --parallel-dir."""
+    from rsis_tpu_torch.evals.streaming import make_streaming_forward
+    import torch.distributed as dist
+    from rsis_tpu_torch.parallel import create_mesh, shard_batch, shutdown
+    from rsis_tpu_torch.train import optim
+    from rsis_tpu_torch.train import step as ts
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, out = args.parallel_rank, args.parallel_dir
+    # gloo: NCCL will not place two ranks on one GPU
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{args.parallel_port}",
+                            world_size=2, rank=rank)
+    res = {"rank": rank}
+    try:
+        group = create_mesh(device="cuda:0")
+        cfg, weights, batch = parallel_step_setup(args)
+        T = PARALLEL_STEP[1]
+        rows = [torch.from_numpy(a.copy()).cuda()
+                for a in shard_batch(group, batch)]
+        state = ts.create_train_state(cfg, weights)
+        flags = ts.StepFlags(1.0, 1.0, 1.0)
+        t0 = time.perf_counter()
+        total, _, grads = ts.loss_and_grads(
+            cfg, state, rows, flags, T, rng=cuda_generator(args.seed),
+            group=group)
+        state.enc_opt, state.dec_opt = optim.update_groups(
+            cfg, state.params(), grads, state.enc_opt, state.dec_opt, 1.0)
+        torch.cuda.synchronize()
+        res["step_s"] = time.perf_counter() - t0
+        res["step_digest"] = state_digest(state)
+        res["step_total"] = total.item()
+        if rank == 0:
+            torch.save({k: g.cpu() for k, g in grads.items()},
+                       os.path.join(out, "grads_rank0.pt"))
+        del state, grads
+
+        counters = forward_counters()
+        for mode in ("concat", "mul"):
+            cfg, weights, x = stream_setup(args, mode)
+            run = make_streaming_forward(cfg, group, T=STREAM_T)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            masks, clss, stops = run(weights, x)
+            torch.cuda.synchronize()
+            res[mode] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k: fn.launches for k, fn in counters.items()},
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_over_base_gb": (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9,
+                "masks_shape": list(masks.shape)}
+            torch.save({"masks": masks.cpu(), "clss": clss.cpu(),
+                        "stops": stops.cpu()},
+                       os.path.join(out, f"{mode}_rank{rank}.pt"))
+            del run, masks
+    finally:
+        shutdown()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def world1_trainer(args) -> dict:
+    """``cli.train`` as rank 0 of a world-1 NCCL group (``-coordinator
+    -num_processes 1 -process_id 0``: the trainer's broadcast, sharding,
+    barriers and rank-0 writes on the card) against the same run without
+    a group: equal metrics.jsonl losses (cuDNN deterministic for both)."""
+    import shutil
+    import tempfile
+    from rsis_tpu_torch.cli.train import main as train_main
+    from rsis_tpu_torch.parallel.distributed import process_count
+    root = tempfile.mkdtemp(prefix="chip_smoke_world1_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    argv = ["-dataset", "synthetic", "-base_model", "resnet101",
+            "-hidden_size", "128", "-num_classes", "9",
+            "-compute_dtype", "bfloat16", "-imsize", "256",
+            "-batch_size", "8", "-synthetic_length", "16", "-maxseqlen",
+            "2", "-max_epoch", "1", "-num_workers", "1", "-seed",
+            str(args.seed), "--log_term", "-models_root", root]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        run_captured(train_main, argv + ["-model_name", "solo"])
+        solo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_captured(train_main, argv + [
+            "-model_name", "nccl", "-coordinator",
+            f"127.0.0.1:{free_port()}", "-num_processes", "1",
+            "-process_id", "0"])
+        nccl_s = time.perf_counter() - t0
+        if process_count() != 1 or torch.distributed.is_initialized():
+            raise SystemExit("cli.train left its process group behind")
+        recs = {}
+        for name in ("solo", "nccl"):
+            with open(os.path.join(root, name, "metrics.jsonl")) as f:
+                recs[name] = [(r["split"], r["total"], r["iou"], r["stop"],
+                               r["class"]) for r in map(json.loads, f)]
+            if not os.path.exists(os.path.join(root, name, "encoder.pt")):
+                raise SystemExit(f"cli.train {name}: no checkpoint")
+        if recs["solo"] != recs["nccl"] or len(recs["solo"]) != 4:
+            raise SystemExit(f"cli.train under a world-1 NCCL group: "
+                             f"{recs['nccl']} != {recs['solo']}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"parallel: cli.train as rank 0 of a world-1 NCCL group, 1 epoch: "
+        f"metrics.jsonl equal to the run without a group ({solo_s:.2f} s "
+        f"and {nccl_s:.2f} s)")
+    return {"solo_s": solo_s, "nccl_s": nccl_s}
+
+
+def parallel_phase(args, out_dir) -> dict:
+    """Phase 4d: data parallelism and the H-sharded streaming forward on
+    the one card (module docstring)."""
+    import shutil
+    import tempfile
+    from rsis_tpu_torch.evals.forward import make_forward
+    from rsis_tpu_torch.models.rsis import build_models
+    from rsis_tpu_torch.parallel import create_mesh, initialize, shutdown
+    from rsis_tpu_torch.train import step as ts
+    t_phase = time.perf_counter()
+    out = {"k2_slab_bf16_err": check_k2_slabs(
+        torch.Generator(device="cuda").manual_seed(args.seed))}
+
+    # 1. world 1 over NCCL: the train smoke step under a real process
+    # group, bit-identical to the step without one (cuDNN deterministic
+    # for the phase; a second step without a group is the control)
+    import numpy as np
+    from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
+    b, T = args.train_batch, args.train_steps
+    cfg = train_config(b, T)
+    torch.manual_seed(args.seed)
+    enc, dec = build_models(cfg)
+    weights = (enc.state_dict(), dec.state_dict())
+    batch = tuple(torch.from_numpy(a).cuda() for a in synthetic_wire_batch(
+        np.random.default_rng(args.seed), b, *TRAIN_HW, cfg.gt_maxseqlen,
+        cfg.num_classes))
+    flags = ts.StepFlags(1.0, 1.0, 1.0)
+    counters = kernel_counters()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def one_step(group):
+        step, _ = ts.make_train_step(cfg, T=T, group=group)
+        state = ts.create_train_state(cfg, weights)
+        for fn in counters.values():
+            fn.launches = 0
+        state, metrics = step(state, batch, flags,
+                              cuda_generator(args.seed))
+        torch.cuda.synchronize()
+        tensors = {**{f"encoder.{k}": v.clone() for k, v in
+                      state.encoder.state_dict().items()},
+                   **{f"decoder.{k}": v.clone() for k, v in
+                      state.decoder.state_dict().items()}}
+        return (metrics.clone(), tensors,
+                {k: fn.launches for k, fn in counters.items()})
+
+    try:
+        t0 = time.perf_counter()
+        m_a, s_a, _ = one_step(None)
+        m_c, s_c, _ = one_step(None)
+        initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+        try:
+            group = create_mesh(device="cuda")
+            m_b, s_b, launches = one_step(group)
+        finally:
+            shutdown()
+        world1_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not (torch.equal(m_a, m_c) and all(torch.equal(s_a[k], s_c[k])
+                                          for k in s_a)):
+        raise SystemExit("two train steps without a process group differ: "
+                         "the bit-identity check has no footing")
+    differ = [k for k in s_a if not torch.equal(s_a[k], s_b[k])]
+    if not torch.equal(m_a, m_b) or differ:
+        raise SystemExit(f"world-1 NCCL step differs from the step without "
+                         f"a process group: metrics {m_a.tolist()} / "
+                         f"{m_b.tolist()}, tensors {differ[:5]}")
+    log(f"parallel: world-1 NCCL step (B={b}, T={T}, bf16, augmentation "
+        f"on) bit-identical to the step without a group in metrics and "
+        f"{len(s_a)} parameters and statistics; launches {launches}; three "
+        f"steps {world1_s:.2f} s")
+    out["world1"] = {"launches": launches, "seconds": world1_s,
+                     "tensors": len(s_a)}
+    del s_a, s_b, s_c, enc, dec, weights, batch
+    out["world1_trainer"] = world1_trainer(args)
+
+    # references for the world-2 run on this process: the step on the
+    # global batch, with the world-2 step's BatchNorm arithmetic
+    # (GlobalBatchNorm at one rank) and with F.batch_norm (one process's
+    # path), and the unsharded streaming forwards
+    from rsis_tpu_torch.parallel.mesh import Group, global_batch_stats
+    cfg2, w2, batch2 = parallel_step_setup(args)
+    T2 = PARALLEL_STEP[1]
+    refs = {}
+    for bn in ("global", "f.batch_norm"):
+        st = ts.create_train_state(cfg2, w2)
+        with (global_batch_stats(Group(0, 1, torch.device("cuda")))
+              if bn == "global" else contextlib.nullcontext()):
+            total, _, grads = ts.loss_and_grads(
+                cfg2, st, tuple(torch.from_numpy(a).cuda() for a in batch2),
+                flags, T2, rng=cuda_generator(args.seed))
+        refs[bn] = (total.item(), grads)
+        del st
+    total_ref, g_ref = refs["global"]
+    ref = {}
+    for mode in ("concat", "mul"):
+        cfg_s, w_s, x = stream_setup(args, mode)
+        fwd = make_forward(cfg_s, T=STREAM_T)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fwd(w_s, x)
+        torch.cuda.synchronize()
+        ref[mode] = {"out": got, "wall_s": time.perf_counter() - t0,
+                     "peak_over_base_gb": (torch.cuda.max_memory_allocated()
+                                           - base) / 1e9}
+        del fwd
+    torch.cuda.empty_cache()
+
+    # 2. world 2 over gloo, both ranks on cuda:0 (NCCL will not place two
+    # ranks on one GPU); the kernels are built: the ranks only load them
+    d = tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        port = free_port()
+        procs = []
+        t0 = time.perf_counter()
+        for rank in range(2):
+            log_f = open(os.path.join(d, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--parallel-rank", str(rank), "--parallel-port", str(port),
+                 "--parallel-dir", d, "--seed", str(args.seed)],
+                stdout=log_f, stderr=subprocess.STDOUT), log_f))
+        failed = []
+        for rank, (p, log_f) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=PARALLEL_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for q, _ in procs:
+                    q.kill()
+                    q.wait()
+                rc = "timeout"
+            log_f.close()
+            if rc != 0:
+                failed.append((rank, rc))
+        world2_s = time.perf_counter() - t0
+        if failed:
+            for rank in range(2):
+                with open(os.path.join(d, f"rank{rank}.log")) as f:
+                    log(f"rank {rank} output:\n" + f.read()[-6000:])
+            raise SystemExit(f"phase 4d ranks failed: {failed}")
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(d, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+
+        # the step: the ranks bit-identical, the global batch's loss and
+        # gradients those of one process on the whole batch (fp32 limits)
+        if ranks[0]["step_digest"] != ranks[1]["step_digest"]:
+            raise SystemExit("world-2 ranks differ after the step")
+        g_rank = torch.load(os.path.join(d, "grads_rank0.pt"))
+        g_rank = {k: v.cuda() for k, v in g_rank.items()}
+        rel = abs(ranks[0]["step_total"] - total_ref) / abs(total_ref)
+        check("world-2 gloo step loss vs world-1 (relative)", rel, 1e-4)
+        rows = step_grad_rows(g_rank, g_ref, ulp=1e-3)
+        worst = max((r["kp"], k) for k, r in rows.items())
+        check(f"world-2 gloo step gradients vs world-1 (units of 1e-3 of "
+              f"each tensor's max; worst {worst[1]})", worst[0], 1.0)
+        # one process's path (F.batch_norm): the loss within the same
+        # limit; the gradients no farther from it than the two BatchNorm
+        # arithmetics are from each other at one rank, within 1% (the
+        # backbone's deepest gradients are ill-conditioned at B=4 and
+        # amplify any rounding: tests/test_torch_ddp_step.py holds both
+        # arithmetics against a float64 step)
+        total_fbn, g_fbn = refs["f.batch_norm"]
+        rel_fbn = abs(ranks[0]["step_total"] - total_fbn) / abs(total_fbn)
+        check("world-2 gloo step loss vs world-1 with F.batch_norm "
+              "(relative)", rel_fbn, 1e-4)
+        fbn = max((r["kp"], k) for k, r in step_grad_rows(
+            g_rank, g_fbn, ulp=1e-3).items())
+        arith = max((r["kp"], k) for k, r in step_grad_rows(
+            g_ref, g_fbn, ulp=1e-3).items())
+        log(f"  world-2 gradients vs world-1 with F.batch_norm: worst "
+            f"{fbn[0]:.3f} units at {fbn[1]}; GlobalBatchNorm vs "
+            f"F.batch_norm, both at one rank: worst {arith[0]:.3f} units "
+            f"at {arith[1]}")
+        check("world-2 gloo step gradients vs world-1 with F.batch_norm "
+              "(units; limit 1.01 x the arithmetics' own distance)",
+              fbn[0], 1.01 * arith[0])
+        del g_rank, g_ref, g_fbn, refs
+        out["world2_step"] = {"loss_rel_err": rel,
+                              "grad_worst_share": worst[0],
+                              "loss_rel_err_f_batch_norm": rel_fbn,
+                              "grad_worst_share_f_batch_norm": fbn[0],
+                              "bn_arithmetic_worst_share": arith[0],
+                              "rank_step_s": [r["step_s"] for r in ranks]}
+
+        # the streaming forward: each rank's rows of the unsharded masks
+        want_launch = {"concat": ("fused_cell_rowmajor", 5 * STREAM_T),
+                       "mul": ("clstm_step", 5 * STREAM_T)}
+        for mode in ("concat", "mul"):
+            parts = [torch.load(os.path.join(d, f"{mode}_rank{r}.pt"))
+                     for r in range(2)]
+            masks = torch.cat([p["masks"] for p in parts], dim=2).cuda()
+            want = ref[mode]["out"]
+            err = {"masks": max_err(masks, want[0])}
+            for i, nm in ((1, "clss"), (2, "stops")):
+                err[nm] = max(max_err(p[nm].cuda(), want[i]) for p in parts)
+                if not torch.equal(parts[0][nm], parts[1][nm]):
+                    raise SystemExit(f"streaming {mode}: {nm} differ "
+                                     f"between ranks")
+            for nm, e in err.items():
+                check(f"streaming {mode} world 2 vs unsharded, {nm}", e,
+                      1e-4)
+            name, n = want_launch[mode]
+            for r in ranks:
+                got = r[mode]["launches"]
+                if got[name] != n or got["mask_head_fused_kernel"] != \
+                        STREAM_T:
+                    raise SystemExit(f"streaming {mode} rank {r['rank']} "
+                                     f"launches {got}")
+            out[f"stream_{mode}"] = {
+                "err": err, "rank_wall_s": [r[mode]["wall_s"] for r in ranks],
+                "rank_launches": [r[mode]["launches"] for r in ranks],
+                "rank_peak_over_base_gb": [r[mode]["peak_over_base_gb"]
+                                           for r in ranks],
+                "rank_peak_gb": [r[mode]["peak_gb"] for r in ranks],
+                "unsharded_wall_s": ref[mode]["wall_s"],
+                "unsharded_peak_over_base_gb":
+                    ref[mode]["peak_over_base_gb"]}
+            log(f"streaming {mode} ({STREAM_HW[0]}x{STREAM_HW[1]}, T="
+                f"{STREAM_T}, fp32, 2 ranks on gloo): {name} "
+                f"{[r[mode]['launches'][name] for r in ranks]} launches a "
+                f"rank, K2 route: mask_head "
+                f"{'fused' if mode == 'concat' else 'nchw'}_kernel on each "
+                f"rank's slab (slab=(row0, {STREAM_HW[0] // 2})), "
+                f"{[r[mode]['launches']['mask_head_fused_kernel'] for r in ranks]}"
+                f" launches a rank; peak over the weights "
+                f"{[round(r[mode]['peak_over_base_gb'], 3) for r in ranks]} "
+                f"GB a rank against {ref[mode]['peak_over_base_gb']:.3f} GB "
+                f"unsharded; wall {[round(r[mode]['wall_s'], 2) for r in ranks]}"
+                f" s a rank against {ref[mode]['wall_s']:.2f} s unsharded")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["world2_s"] = world2_s
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"parallel phase: {out['seconds']:.1f} s (world-2 ranks "
+        f"{world2_s:.1f} s, their start-up included)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -2038,6 +2535,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print device time by operation for one forward "
                     "and one train step")
+    # phase 4d starts its two ranks as this script with these
+    ap.add_argument("--parallel-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2058,6 +2561,8 @@ def main() -> int:
         print(f"chip_smoke: the rsis_tpu_torch package is missing: {e}",
               file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:
+        return parallel_rank(args)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2241,6 +2746,7 @@ def main() -> int:
         options = options_phase(args, models, card)
     finally:
         shutil.rmtree(models, ignore_errors=True)
+    parallel = parallel_phase(args, out_dir)
 
     # ---- 5. timings ----------------------------------------------------
     encoder = enc_p
@@ -2358,6 +2864,7 @@ def main() -> int:
                        "cell_bwd_bf16_ulps": cell_bwd_ulps,
                        "train": train, "train_batch": tb,
                        "trainer": trainer, "options": options,
+                       "parallel": parallel,
                        "warp": warp,
                        "backward_cells": {k: v["cells"]
                                           for k, v in bwd.items()},

@@ -14,7 +14,12 @@ dataset catalogs). The trainer also takes a pretrained encoder file
 (``models/torch_import.py``), a transfer from another model, host-side
 augmentation (``data/augment.py``) and ``--visdom`` (``utils/``);
 ``cli/verify_parity.py`` holds the forward against a plain-torch replica
-of the reference (``models/torch_ref.py``).
+of the reference (``models/torch_ref.py``). Data-parallel training runs
+one process a GPU (``parallel/``, the trainer's ``-num_devices`` and
+multi-process flags), streaming inference shards the image's rows over
+the ranks (``evals/streaming.py``), and the CVPPP contest harness
+(``evals/cvppp_harness.py``) and the Pascal VOC + SBD merge
+(``data/tools/pascalplus_gen.py``) run on the host.
 
 Kernel wrappers dispatch on the device of the tensors they are given: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the

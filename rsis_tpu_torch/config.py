@@ -6,8 +6,11 @@ training step and the train loop read, with the same names, defaults and
 command-line flags, so a JAX ``Config`` and this one describe the same
 model and the same run, training, evaluation and prediction alike.
 Kernel dispatch goes by tensor device, so there is no ``pallas`` knob; the
-JAX package's mesh, multi-host and checkpoint-format knobs are not here and
-their flags are refused.
+JAX package's checkpoint-format knob is not here and its flag is refused.
+The data-parallel and multi-process fields (``num_devices``,
+``coordinator``, ``num_processes``, ``process_id``, ``multihost``) are
+JAX's, read by ``cli/train.py`` (one process a GPU,
+``parallel/distributed.py``).
 Like the reference, the config is saved beside the checkpoints
 (``args.json``) and takes precedence on resume.
 """
@@ -91,6 +94,15 @@ class Config:
     shear: float = 0.1
     zoom: float = 0.7
 
+    # data parallelism: num_devices ranks on this host (0: every visible
+    # GPU; one process a device), or one rank a process joined through
+    # coordinator/num_processes/process_id or the launcher's environment
+    # (multihost); all None: one process
+    num_devices: int = 0
+    coordinator: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
+    multihost: bool = False
     compute_dtype: str = "float32"  # or "bfloat16"
     # decode-step rematerialisation: auto (off while the saved decode
     # activations fit), on, off; see train/step.py::_resolve_remat
@@ -231,6 +243,12 @@ def get_parser() -> argparse.ArgumentParser:
     flag("-translation", "translation", type=float)
     flag("-shear", "shear", type=float)
     flag("-zoom", "zoom", type=float)
+    # data parallelism
+    flag("-num_devices", "num_devices", type=int)
+    flag("-coordinator", "coordinator", type=str)
+    flag("-num_processes", "num_processes", type=int)
+    flag("-process_id", "process_id", type=int)
+    switch("--multihost", "multihost")
     flag("-compute_dtype", "compute_dtype", choices=["float32", "bfloat16"])
     flag("-remat", "remat", choices=["auto", "on", "off"])
     # model

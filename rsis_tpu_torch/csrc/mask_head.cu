@@ -52,6 +52,14 @@
 // a fixed order, so two launches are bit-identical. Everything accumulates
 // in fp32 and rounds once to the output dtype. The plan (V, R, warps) comes
 // from rsis_tpu_torch/ops/mask_head.py::mask_head_plan.
+//
+// A slab of an H-sharded image (rsis_tpu_torch/evals/streaming.py): the H
+// rows at hs are rows row0 .. row0 + H - 1 of an image of HG rows, with
+// the halo rows row0 - 1 and row0 + H one row stride before and after them
+// in memory where they lie inside the image. Rows are weighed by their
+// global index m = r + row0 over n = HG and read where 0 <= m < HG, so the
+// slab's outputs are the full image's rows 2 row0 .. 2 (row0 + H) - 1; the
+// unsharded head is row0 = 0, HG = H.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,6 +135,7 @@ struct Item {
 struct Geom {
   int B, H, C, W;
   long long sb, sc, sr;  // input strides in elements; W contiguous
+  int row0, HG;          // global row of row 0 and the image's height
   int rows;              // output-row pairs (input rows) a block
   int row_strips;        // ceil(H / rows)
   int col_strips;        // column strips of a row
@@ -245,7 +254,7 @@ mask_head_kernel(const S* __restrict__ hs, const float* __restrict__ wt,
   const int r0 = rs * g.rows;
   const int m_last = min(r0 + g.rows, g.H) - 1;
   const int r_end = m_last + 1;
-  const float hinv = 1.0f / static_cast<float>(2 * g.H - 1);
+  const float hinv = 1.0f / static_cast<float>(2 * g.HG - 1);
   const S* base = hs + b * g.sb + (col_in ? n0 : 0);
   S* obase = out + (static_cast<long long>(b) * 2 * g.H) * 2 * g.W +
              (owner ? 2 * n0 : 0);
@@ -257,7 +266,7 @@ mask_head_kernel(const S* __restrict__ hs, const float* __restrict__ wt,
   int fr = r0 - 1, fc = 0;
   auto fetch = [&](Item<S, V>& it) {
     if (fr > r_end) return;
-    const bool ok = col_in && fr >= 0 && fr < g.H;
+    const bool ok = col_in && fr + g.row0 >= 0 && fr + g.row0 < g.HG;
     load_item(it, ok ? base + fr * g.sr : base, g.sc, fc * kChunk, g.C, ok);
     if (++fc == n_chunks) {
       fc = 0;
@@ -273,7 +282,8 @@ mask_head_kernel(const S* __restrict__ hs, const float* __restrict__ wt,
   // completes P, whose column stage then stores it, and P's registers
   // take up pair r+1: the next row swaps the roles of P and Q.
   auto row = [&](int r, float(&P)[2][3][V], float(&Q)[2][3][V]) {
-    const bool in = r >= 0 && r < g.H;
+    const int m = r + g.row0;  // the row's index in the image
+    const bool in = m >= 0 && m < g.HG;
     float z[9][V];
 #pragma unroll
     for (int t = 0; t < 9; ++t)
@@ -287,11 +297,11 @@ mask_head_kernel(const S* __restrict__ hs, const float* __restrict__ wt,
     }
     // the row weights: a[r+1] (0 past the last row), a, b, c, d at r and
     // d[r-1] (0 above the first row)
-    const float a1 = r + 1 < g.H ? static_cast<float>(r + 1) * hinv : 0.0f;
-    const float br = 1.0f - static_cast<float>(r) * hinv;
-    const float dr = static_cast<float>(g.H - 1 - r) * hinv;
+    const float a1 = m + 1 < g.HG ? static_cast<float>(m + 1) * hinv : 0.0f;
+    const float br = 1.0f - static_cast<float>(m) * hinv;
+    const float dr = static_cast<float>(g.HG - 1 - m) * hinv;
     const float cr = 1.0f - dr;
-    const float dm = r >= 1 ? static_cast<float>(g.H - r) * hinv : 0.0f;
+    const float dm = m >= 1 ? static_cast<float>(g.HG - m) * hinv : 0.0f;
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
@@ -452,21 +462,25 @@ cudaError_t launch_v(const void* hs, const float* wt, const float* bias,
 // 1 = bfloat16); weight (1, C, 3, 3) float32 contiguous (tap = dy * 3 +
 // dx); bias one float32. The plan: v columns a thread (1, 2 or 4; W, the
 // strides and hs's address aligned to v elements), rows input rows a
-// block, warps (1-8) a block. Returns the launch's cudaError_t (0 on
-// success).
+// block, warps (1-8) a block. row0 and HG: the slab's first row and the
+// image's height (0 and H unsharded; the halo rows row0 - 1 and row0 + H
+// that lie in the image at hs - sr and hs + H sr). Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int rsis_mask_head(const void* hs, const void* weight,
                               const void* bias, void* out, int B, int H,
                               int C, int W, long long sb, long long sc,
                               long long sr, int dtype, int v, int rows,
-                              int warps, void* stream) {
+                              int warps, int row0, int HG, void* stream) {
   if (B <= 0 || H <= 0 || C <= 0 || W <= 0 || rows <= 0 || warps <= 0 ||
-      warps > kMaxWarps || (v != 1 && v != 2 && v != 4))
+      warps > kMaxWarps || (v != 1 && v != 2 && v != 4) || row0 < 0 ||
+      row0 + H > HG)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t esize = dtype == 0 ? 4 : 2;
   if (W % v || sb % v || sc % v || sr % v ||
       reinterpret_cast<uintptr_t>(hs) % (v * esize))
     return static_cast<int>(cudaErrorInvalidValue);
-  Geom g{B, H, C, W, sb, sc, sr, rows, (H + rows - 1) / rows, 1, 0};
+  Geom g{B, H, C, W, sb, sc, sr, row0, HG, rows, (H + rows - 1) / rows,
+         1, 0};
   col_strips(W, v, warps, g.col_strips, g.col_step);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(weight);

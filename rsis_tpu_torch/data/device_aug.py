@@ -7,8 +7,10 @@ explicit ``torch.Generator`` (on the batch's device), drawn in a fixed
 order: the flips, then the rotation, the two translations, the shear and
 the zooms. ``affine_from_draws`` composes R @ T @ Sh @ Z from the drawn
 values and ``augment_wire_batch_with`` takes the flips and matrices
-ready-made, so a test can feed both the JAX package's own draws. There is
-no mesh argument: the port runs on one GPU.
+ready-made, so a test can feed both the JAX package's own draws. Under
+data parallelism (``rows``) the draws are made at the global batch's
+shape on every rank and each rank keeps its rows, so a sharded step
+augments each image as one process would.
 """
 
 from __future__ import annotations
@@ -108,10 +110,13 @@ def augment_wire_batch(gen: torch.Generator, x: torch.Tensor,
                        y_mask: torch.Tensor, rotation: float,
                        translation: float, shear: float,
                        zoom_range: Tuple[float, float] | None,
-                       plain: bool = False):
+                       plain: bool = False,
+                       rows: Tuple[int, int] | None = None):
     """On-device train-batch augmentation: draws a 50% flip per sample,
     then one fused R @ T @ Sh @ Z matrix per sample, from ``gen``, and
-    applies both as ``augment_wire_batch_with`` does.
+    applies both as ``augment_wire_batch_with`` does. rows = (offset,
+    global batch): x holds rows offset.. of a global batch, the draws are
+    made for the global batch and these rows kept (K7 warps only them).
 
     Geometric twin of the host path: flip first, then the inverse warp
     with nearest interpolation. Nearest sampling is a gather, so it
@@ -119,7 +124,9 @@ def augment_wire_batch(gen: torch.Generator, x: torch.Tensor,
     normalisation of the image; instances warped fully out of frame keep
     their (now empty) slot."""
     b, h, w = x.shape[:3]
-    flip = torch.rand((b,), generator=gen, device=gen.device) < 0.5
-    matrices = sample_affine_matrices(gen, b, h, w, rotation, translation,
-                                      shear, zoom_range)
-    return augment_wire_batch_with(x, y_mask, matrices, flip, plain=plain)
+    off, total = rows or (0, b)
+    flip = torch.rand((total,), generator=gen, device=gen.device) < 0.5
+    matrices = sample_affine_matrices(gen, total, h, w, rotation,
+                                      translation, shear, zoom_range)
+    return augment_wire_batch_with(x, y_mask, matrices[off:off + b],
+                                   flip[off:off + b], plain=plain)

@@ -60,15 +60,23 @@ def _linear(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-            keep_shape) -> torch.Tensor:
+            keep_shape, rows=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each entry of a ``keep_shape`` draw
     (broadcast over x) with probability 1 - rate and scale the kept ones
-    by 1 / (1 - rate)."""
+    by 1 / (1 - rate). rows = (offset, global batch): x holds those rows
+    of a global batch; the draw is made at the global shape and these
+    rows kept."""
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    draw = torch.rand(keep_shape, generator=generator,
-                      device=generator.device)
+    if rows is None:
+        draw = torch.rand(keep_shape, generator=generator,
+                          device=generator.device)
+    else:
+        off, total = rows
+        draw = torch.rand((total,) + tuple(keep_shape[1:]),
+                          generator=generator,
+                          device=generator.device)[off:off + keep_shape[0]]
     keep = (draw < keep_prob).to(x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
@@ -111,14 +119,20 @@ class RSISDecoder(nn.Module):
 
     def forward(self, skips: Sequence[torch.Tensor], carry=None,
                 generator: torch.Generator | None = None,
-                plain: bool = False):
+                plain: bool = False, rows=None, slab=None):
         """One decode step.
 
         skips: 5 skip features (x5..x1, NCHW); carry: the state pyramid
         of the previous step, or None for zeros; generator: the source of
         the dropouts' random numbers, needed when ``needs_generator()``;
+        rows: (offset, global batch) of a rank's rows of a data-parallel
+        batch, whose dropouts are drawn at the global shape;
         plain: the cells take K8's plain version (``ConvLSTMCell``) and
-        the head the upsample and ``F.conv2d`` in place of K2.
+        the head the upsample and ``F.conv2d`` in place of K2;
+        slab: the ``evals/streaming.Slab`` of an H-sharded forward (skips
+        and carry are this rank's rows): the cells, the upsamples and the
+        head read the neighbours' rows through it, and the side features
+        are maxed over its ranks.
         Returns ((mask_logits (B, 1, 2H1, 2W1), class_probs (B, K),
         stop_logits (B, 1)), new_carry)."""
         if self.needs_generator() and generator is None:
@@ -131,16 +145,19 @@ class RSISDecoder(nn.Module):
         new_carry, side_feats = [], []
         n = len(self.clstm_list)
         for i, cell in enumerate(self.clstm_list):
-            hidden, state = cell(clstm_in, carry[i], plain=plain)
+            if slab is None:
+                hidden, state = cell(clstm_in, carry[i], plain=plain)
+            else:
+                hidden, state = slab.cell(cell, clstm_in, carry[i])
             new_carry.append(state)
             if train and self.dropout > 0:
                 hidden = dropout(hidden, self.dropout, generator,
-                                 hidden.shape[:2] + (1, 1))
+                                 hidden.shape[:2] + (1, 1), rows)
             side_feats.append(hidden.amax(dim=(2, 3)))
             if i + 1 < n:
                 nxt = skips[i + 1]
-                up = upsample_bilinear_align_corners(hidden, nxt.shape[2],
-                                                     nxt.shape[3])
+                up = (upsample_bilinear_align_corners if slab is None
+                      else slab.upsample)(hidden, nxt.shape[2], nxt.shape[3])
                 if self.skip_mode == "concat":
                     clstm_in = torch.cat([up, nxt], dim=1)
                 elif self.skip_mode == "sum":
@@ -149,7 +166,9 @@ class RSISDecoder(nn.Module):
                     clstm_in = up * nxt
                 else:
                     clstm_in = up
-        if (not plain and self.conv_out.kernel_size == (3, 3)
+        if slab is not None:
+            mask_logits = slab.head(self.conv_out, hidden)
+        elif (not plain and self.conv_out.kernel_size == (3, 3)
                 and not torch.is_grad_enabled()):
             # K2 on the hidden state itself: the upsample never exists
             mask_logits = mask_head_nchw_kernel(hidden.contiguous(),
@@ -162,12 +181,15 @@ class RSISDecoder(nn.Module):
                                    self.conv_out.bias.to(up.dtype),
                                    padding=self.conv_out.padding)
         feats = torch.cat(side_feats, dim=-1)
+        if slab is not None:
+            feats = slab.max(feats)
         cls_in, stop_in = feats, feats
         if train and self.dropout_cls > 0:
-            cls_in = dropout(feats, self.dropout_cls, generator, feats.shape)
+            cls_in = dropout(feats, self.dropout_cls, generator,
+                             feats.shape, rows)
         if train and self.dropout_stop > 0:
             stop_in = dropout(feats, self.dropout_stop, generator,
-                              feats.shape)
+                              feats.shape, rows)
         class_probs = torch.softmax(_linear(cls_in, self.fc_class), dim=-1)
         stop_logits = _linear(stop_in, self.fc_stop)
         return (mask_logits, class_probs, stop_logits), tuple(new_carry)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from .backbones import BACKBONES, SKIP_DIMS, BatchNorm2d
+from .backbones import BACKBONES, SKIP_DIMS, BatchNorm2d, Conv2d
 
 
 class FeatureExtractor(nn.Module):
@@ -22,7 +22,7 @@ class FeatureExtractor(nn.Module):
         widths = (h, h, h // 2, h // 4, h // 8)
         pad = (kernel_size - 1) // 2
         for i, (cin, width) in enumerate(zip(SKIP_DIMS[base_model], widths)):
-            setattr(self, f"sk{5 - i}", nn.Conv2d(cin, width, kernel_size,
+            setattr(self, f"sk{5 - i}", Conv2d(cin, width, kernel_size,
                                                   padding=pad))
             setattr(self, f"bn{5 - i}", BatchNorm2d(width, eps=1e-5))
 

@@ -43,14 +43,20 @@ from .decoder import RSISDecoder, decoder_widths
 CHANNEL_SEPARABLE = ("concat", "sum", "none")
 
 
+def _conv_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    return F.conv2d(x, weight, padding=1)
+
+
 def _hoist_cells_rowmajor(decoder: RSISDecoder,
                           skips: Sequence[torch.Tensor], skip_mode: str,
-                          dtype: torch.dtype):
+                          dtype: torch.dtype, conv=_conv_same):
     """Per cell: packed weight, S term (B, H, 4C, W) in ``dtype``, cx and
     ch.
 
     skips are NCHW. The gate weight (4C, Cin, 3, 3) splits along Cin into
-    the up-input (kx), skip (ks) and hidden (kh) parts."""
+    the up-input (kx), skip (ks) and hidden (kh) parts. conv(skip, weight)
+    is the 3x3 SAME convolution of a skip (the streaming forward's takes
+    the halo rows of an H-sharded skip)."""
     widths = decoder_widths(decoder.hidden_size)
     cells = []
     for i, ch in enumerate(widths):
@@ -60,18 +66,17 @@ def _hoist_cells_rowmajor(decoder: RSISDecoder,
         b_ = bias.to(dtype)[None, :, None, None]
         if i == 0:
             cs = skip.shape[1]
-            s_term = F.conv2d(skip, kernel[:, :cs].to(dtype), padding=1) + b_
+            s_term = conv(skip, kernel[:, :cs].to(dtype)) + b_
             step_kernel, cx = kernel[:, cs:], 0
         else:
             cp = widths[i - 1]
             kx = kernel[:, :cp]
             if skip_mode == "concat":
                 cs = skip.shape[1]
-                s_term = F.conv2d(skip, kernel[:, cp:cp + cs].to(dtype),
-                                  padding=1) + b_
+                s_term = conv(skip, kernel[:, cp:cp + cs].to(dtype)) + b_
                 kh = kernel[:, cp + cs:]
             elif skip_mode == "sum":
-                s_term = F.conv2d(skip, kx.to(dtype), padding=1) + b_
+                s_term = conv(skip, kx.to(dtype)) + b_
                 kh = kernel[:, cp:]
             elif skip_mode == "none":
                 bsz, _, hh, ww = skip.shape
@@ -114,35 +119,54 @@ def init_carry_rowmajor(skips: Sequence[torch.Tensor], hidden_size: int,
         for s, ch in zip(skips, decoder_widths(hidden_size)))
 
 
+def _fused_cell(*args, cx: int, ch: int):
+    return FusedCellFunction.apply(*args, cx, ch)
+
+
 def rowmajor_decoder_step(decoder: RSISDecoder, cells, carry,
-                          plain: bool = False):
+                          plain: bool = False, slab=None):
     """One decode step; carry is a tuple of (h, c) in (B, H, C, W).
 
     Returns ((finest h, class_probs, stop_logits), new_carry): the caller
-    owns the mask head. plain=True runs the kernels' plain versions."""
+    owns the mask head. plain=True runs the kernels' plain versions.
+    slab: the ``evals/streaming.Slab`` of an H-sharded forward (cells and
+    carry hold this rank's rows): each cell runs on the slab and its
+    neighbours' rows, the upsample reads the slab's rows of the global
+    interpolation, and the side features are maxed over its ranks."""
+    cell_fn = fused_cell_rowmajor_ref if plain else _fused_cell
     side_feats, new_carry = [], []
     h = None
     for i, cell in enumerate(cells):
         h_prev, c_prev = carry[i]
         x_pad = None
         if i > 0:
-            x_pad = _upsample_rowmajor(h, h_prev.shape[1], h_prev.shape[3],
-                                       pad=True)
+            x_pad = (_upsample_rowmajor if slab is None
+                     else slab.upsample_rowmajor)(
+                h, h_prev.shape[1], h_prev.shape[3], pad=True)
         args = (h_prev, x_pad, c_prev, cell["s"], cell["wt"])
-        if plain:
-            h, c = fused_cell_rowmajor_ref(*args, cx=cell["cx"],
-                                           ch=cell["ch"])
+        if slab is None:
+            h, c = cell_fn(*args, cx=cell["cx"], ch=cell["ch"])
         else:
-            h, c = FusedCellFunction.apply(*args, cell["cx"], cell["ch"])
+            h, c = slab.cell_rowmajor(cell_fn, *args, cx=cell["cx"],
+                                      ch=cell["ch"])
         new_carry.append((h, c))
         side_feats.append(h.amax(dim=(1, 3)))
     feats = torch.cat(side_feats, dim=-1)
+    if slab is not None:
+        feats = slab.max(feats)
+    class_probs, stop_logits = heads(decoder, feats)
+    return (h, class_probs, stop_logits), tuple(new_carry)
+
+
+def heads(decoder: RSISDecoder, feats: torch.Tensor):
+    """(class_probs, stop_logits) of the side features (B, sum C), in
+    their dtype."""
     dt = feats.dtype
     fc_c, fc_s = decoder.fc_class, decoder.fc_stop
     class_probs = torch.softmax(
         F.linear(feats, fc_c.weight.to(dt), fc_c.bias.to(dt)), dim=-1)
     stop_logits = F.linear(feats, fc_s.weight.to(dt), fc_s.bias.to(dt))
-    return (h, class_probs, stop_logits), tuple(new_carry)
+    return class_probs, stop_logits
 
 
 def decode_sequence_rowmajor(decoder: RSISDecoder,

@@ -5,6 +5,13 @@ weighted means instead of ``masked_select``, so every loss keeps a static
 shape. ``mean(masked_select(x, sw))`` equals ``sum(x * sw) / sum(sw)``
 exactly. Mask logits may arrive in bf16 (the step stacks them in the
 compute dtype); the losses upcast them to fp32 before the long sums.
+
+Given a data-parallel ``group`` (``parallel/mesh.py``), each rank holds
+its rows of the global batch and the losses keep JAX's global-batch
+semantics: the denominators (the sum of the sample weights, the positive
+fraction of the stop targets) are summed over the ranks, without
+gradient, and each rank divides its own numerator by them. The global
+loss is then the SUM of the ranks' losses, and so is its gradient.
 """
 
 from __future__ import annotations
@@ -51,13 +58,22 @@ def masked_nll(target_idx: torch.Tensor, probs: torch.Tensor,
     return -torch.gather(logp, -1, target_idx.long()[..., None])[..., 0]
 
 
+def _global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """x (a denominator: no gradient) summed over the group's ranks."""
+    if group is None or not group.active:
+        return x
+    return group.all_reduce_(x.detach().clone().contiguous())
+
+
 def balanced_bce(target: torch.Tensor, logits: torch.Tensor,
-                 balance_weight=None) -> torch.Tensor:
+                 balance_weight=None, group=None) -> torch.Tensor:
     """Stable class-balanced binary cross-entropy on logits: positive
     terms weighted (1 - bw), negative terms bw; bw None = the positive
-    fraction of the target."""
+    fraction of the target (of the global batch over ``group``)."""
     if balance_weight is None:
-        balance_weight = target.sum() / target.numel()
+        ranks = 1 if group is None or not group.active else group.size
+        balance_weight = (_global_sum(target.sum(), group)
+                          / (target.numel() * ranks))
     max_val = torch.clamp(-logits, min=0.0)
     raw = (logits - logits * target + max_val
            + torch.log(torch.exp(-max_val) + torch.exp(-logits - max_val)))
@@ -67,26 +83,27 @@ def balanced_bce(target: torch.Tensor, logits: torch.Tensor,
 
 
 def _weighted_mean(values: torch.Tensor, sw: torch.Tensor,
-                   eps: float = 1e-12) -> torch.Tensor:
+                   eps: float = 1e-12, group=None) -> torch.Tensor:
     sw = sw.to(values.dtype)
-    return torch.sum(values * sw) / (torch.sum(sw) + eps)
+    return torch.sum(values * sw) / (_global_sum(torch.sum(sw), group)
+                                     + eps)
 
 
-def soft_iou_loss(y_true, y_logits, sw) -> torch.Tensor:
+def soft_iou_loss(y_true, y_logits, sw, group=None) -> torch.Tensor:
     """Mean soft-IoU cost over positions where sw == 1."""
     costs = soft_iou_cost(y_true, y_logits)
-    return _weighted_mean(costs, sw.reshape(costs.shape))
+    return _weighted_mean(costs, sw.reshape(costs.shape), group=group)
 
 
-def masked_nll_loss(y_true_idx, y_probs, sw,
-                    balance_weights=None) -> torch.Tensor:
+def masked_nll_loss(y_true_idx, y_probs, sw, balance_weights=None,
+                    group=None) -> torch.Tensor:
     """Mean class NLL over positions where sw == 1."""
     costs = masked_nll(y_true_idx, y_probs, balance_weights)
-    return _weighted_mean(costs, sw.reshape(costs.shape))
+    return _weighted_mean(costs, sw.reshape(costs.shape), group=group)
 
 
-def masked_bce_loss(y_true, y_logits, sw, balance_weight=None
-                    ) -> torch.Tensor:
+def masked_bce_loss(y_true, y_logits, sw, balance_weight=None,
+                    group=None) -> torch.Tensor:
     """Mean balanced BCE over positions where sw == 1."""
-    costs = balanced_bce(y_true, y_logits, balance_weight)
-    return _weighted_mean(costs, sw.reshape(costs.shape))
+    costs = balanced_bce(y_true, y_logits, balance_weight, group)
+    return _weighted_mean(costs, sw.reshape(costs.shape), group=group)

@@ -14,6 +14,14 @@ decoder) launch the hand-written kernel ``csrc/mask_head.cu`` as
 ``mask_head_fused_kernel.launches``; on a CPU tensor they run the plain
 PyTorch version: conv2d over the upsample, in fp32, rounded once to the
 input dtype.
+
+``slab=(row0, full_h)`` runs the head on a slab of an image whose rows are
+sharded (``evals/streaming.py``): the input holds the slab's rows of an
+image of full_h rows, from global row row0, plus one halo row above and
+below (zeros where outside the image), and the output is the slab's own
+rows of the full image's logits. The kernel maps rows through the
+upsample by their global index; on the unsharded head (row0 0, full_h
+the height, no halo) its arithmetic is the unchanged one.
 """
 
 from __future__ import annotations
@@ -27,26 +35,40 @@ import torch.nn.functional as F
 
 from . import _build
 from .fused_cell import SM_COUNT
-from .upsample import upsample_bilinear_align_corners
+from .upsample import (interp_matrix, interp_window,
+                       upsample_bilinear_align_corners)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def mask_head_nchw_ref(ht: torch.Tensor, weight: torch.Tensor,
-                       bias: torch.Tensor) -> torch.Tensor:
+                       bias: torch.Tensor, slab=None) -> torch.Tensor:
     """Plain version: ht (B, C, H, W), weight (1, C, 3, 3), bias (1,) ->
-    (B, 1, 2H, 2W) logits in the dtype of ht."""
+    (B, 1, 2H, 2W) logits in the dtype of ht. With slab = (row0, full_h),
+    ht holds H - 2 slab rows and their two halo rows, and the output the
+    slab's 2(H - 2) rows."""
     _, _, h, w = ht.shape
-    up = upsample_bilinear_align_corners(ht.float(), 2 * h, 2 * w)
-    out = F.conv2d(up, weight.float(), bias.float(), padding=1)
+    if slab is None:
+        up = upsample_bilinear_align_corners(ht.float(), 2 * h, 2 * w)
+        out = F.conv2d(up, weight.float(), bias.float(), padding=1)
+        return out.to(ht.dtype)
+    row0, full_h = slab
+    n = h - 2
+    # the slab's upsampled rows and the conv's halo row on each side
+    rm = interp_window(full_h, 2 * full_h, 2 * row0 - 1, 2 * n + 2,
+                       row0 - 1, n + 2, torch.float32, ht.device)
+    cm = interp_matrix(w, 2 * w, torch.float32, ht.device)
+    up = torch.matmul(torch.matmul(rm, ht.float()), cm.t())
+    out = F.conv2d(up, weight.float(), bias.float(), padding=(0, 1))
     return out.to(ht.dtype)
 
 
 def mask_head_ref(hs: torch.Tensor, weight: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
+                  bias: torch.Tensor, slab=None) -> torch.Tensor:
     """Plain version: hs (B, H, C, W), weight (1, C, 3, 3), bias (1,) ->
-    (B, 2H, 2W, 1) logits in the dtype of hs."""
-    out = mask_head_nchw_ref(hs.permute(0, 2, 1, 3), weight, bias)
+    (B, 2H, 2W, 1) logits in the dtype of hs (slab: as
+    ``mask_head_nchw_ref``)."""
+    out = mask_head_nchw_ref(hs.permute(0, 2, 1, 3), weight, bias, slab)
     return out.permute(0, 2, 3, 1)
 
 
@@ -138,7 +160,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mask_head")
     lib.rsis_mask_head.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.rsis_mask_head.restype = ctypes.c_int
     return lib
 
@@ -151,9 +173,11 @@ def _check(x, weight, bias, c):
         raise ValueError("all operands must be on one device")
 
 
-def _launch(x, weight, bias, out, b, h, c, w, strides):
+def _launch(x, weight, bias, out, b, h, c, w, strides, slab=None):
     """One K2 launch on x (CUDA, fp32 or bf16, W contiguous, strides
-    (batch, channel, row) in elements) into out (B, 2H, 2W memory)."""
+    (batch, channel, row) in elements) into out (B, 2H, 2W memory); with
+    slab = (row0, full_h), x's first row is the halo row above h slab
+    rows."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -163,14 +187,17 @@ def _launch(x, weight, bias, out, b, h, c, w, strides):
         raise ValueError("mask head kernel needs a contiguous input")
     wt = weight.float().contiguous()
     b32 = bias.reshape(1).float().contiguous()
-    align = x.data_ptr() & -x.data_ptr() & 15 or 16
+    row0, full_h = slab or (0, h)
+    # the slab's first row; its halo rows lie one row stride around it
+    ptr = x.data_ptr() + (strides[2] * x.element_size() if slab else 0)
+    align = ptr & -ptr & 15 or 16
     plan = mask_head_plan(b, h, c, w, x.dtype, strides, align)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rsis_mask_head(
-            x.data_ptr(), wt.data_ptr(), b32.data_ptr(), out.data_ptr(), b,
+            ptr, wt.data_ptr(), b32.data_ptr(), out.data_ptr(), b,
             h, c, w, *strides, _DTYPE_CODES[x.dtype], plan.v, plan.rows,
-            plan.warps, stream)
+            plan.warps, row0, full_h, stream)
     if err != 0:
         raise RuntimeError(f"mask head kernel launch failed: CUDA error "
                            f"{err}")
@@ -178,50 +205,66 @@ def _launch(x, weight, bias, out, b, h, c, w, strides):
     return out
 
 
+def _slab_rows(h: int, slab) -> int:
+    if slab is None:
+        return h
+    if h < 3:
+        raise ValueError(f"a slab needs its two halo rows and one row; "
+                         f"got {h} rows")
+    return h - 2
+
+
 def mask_head_fused_kernel(hs: torch.Tensor, weight: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
+                           bias: torch.Tensor, slab=None) -> torch.Tensor:
     """conv3x3(upsample_2x_align_corners(h)) + bias, one output channel.
 
     Args:
       hs: (B, H, C, W) finest hidden states (the decode layout).
       weight: (1, C, 3, 3) conv weight; bias: (1,).
+      slab: (row0, full_h) for a slab of an H-sharded image: hs holds its
+        H - 2 rows and a halo row above and below (module docstring).
     Returns:
-      (B, 2H, 2W, 1) mask logits in the dtype of hs.
+      (B, 2H, 2W, 1) mask logits in the dtype of hs (slab: 2(H - 2) rows).
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16
     hs, contiguous) launch ``csrc/mask_head.cu`` and count one launch in
     ``mask_head_fused_kernel.launches``."""
     b, h, c, w = hs.shape
     _check(hs, weight, bias, c)
+    n = _slab_rows(h, slab)
     if hs.device.type == "cpu":
-        return mask_head_ref(hs, weight, bias)
-    out = torch.empty((b, 2 * h, 2 * w, 1), dtype=hs.dtype, device=hs.device)
-    return _launch(hs, weight, bias, out, b, h, c, w, (h * c * w, w, c * w))
+        return mask_head_ref(hs, weight, bias, slab)
+    out = torch.empty((b, 2 * n, 2 * w, 1), dtype=hs.dtype, device=hs.device)
+    return _launch(hs, weight, bias, out, b, n, c, w, (h * c * w, w, c * w),
+                   slab)
 
 
 mask_head_fused_kernel.launches = 0
 
 
 def mask_head_nchw_kernel(ht: torch.Tensor, weight: torch.Tensor,
-                          bias: torch.Tensor) -> torch.Tensor:
+                          bias: torch.Tensor, slab=None) -> torch.Tensor:
     """The head on channel-planes-major input, the counterpart of
     ``mask_head_pallas_t``: the plain decoder's last hidden state.
 
     Args:
       ht: (B, C, H, W) finest hidden states (NCHW).
       weight: (1, C, 3, 3) conv weight; bias: (1,).
+      slab: as ``mask_head_fused_kernel``'s.
     Returns:
-      (B, 1, 2H, 2W) mask logits in the dtype of ht.
+      (B, 1, 2H, 2W) mask logits in the dtype of ht (slab: 2(H - 2) rows).
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16
     ht, contiguous) launch ``csrc/mask_head.cu`` and count one launch in
     ``mask_head_fused_kernel.launches``."""
     b, c, h, w = ht.shape
     _check(ht, weight, bias, c)
+    n = _slab_rows(h, slab)
     if ht.device.type == "cpu":
-        return mask_head_nchw_ref(ht, weight, bias)
-    out = torch.empty((b, 1, 2 * h, 2 * w), dtype=ht.dtype, device=ht.device)
-    return _launch(ht, weight, bias, out, b, h, c, w, (c * h * w, h * w, w))
+        return mask_head_nchw_ref(ht, weight, bias, slab)
+    out = torch.empty((b, 1, 2 * n, 2 * w), dtype=ht.dtype, device=ht.device)
+    return _launch(ht, weight, bias, out, b, n, c, w, (c * h * w, h * w, w),
+                   slab)
 
 
 class MaskHeadFunction(torch.autograd.Function):

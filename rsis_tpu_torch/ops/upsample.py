@@ -53,6 +53,33 @@ def interp_matrix(n_in: int, n_out: int, dtype: torch.dtype,
         return torch.as_tensor(m, dtype=dtype).float().to(device)
 
 
+@functools.lru_cache(maxsize=256)
+def interp_window(n_in: int, n_out: int, out_lo: int, out_n: int,
+                  in_lo: int, in_n: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """Rows out_lo .. out_lo + out_n - 1 of ``_interp_matrix(n_in, n_out)``
+    restricted to input rows in_lo .. in_lo + in_n - 1, rounded to
+    ``dtype`` and held in float32 on ``device``: the row matrix of a slab
+    of an image whose rows are sharded (``evals/streaming.py``). Rows
+    outside [0, n_out) are zero (a zero border), and so are input rows
+    outside [0, n_in); a kept row with weight outside the window raises.
+    The cached tensor is shared: callers must not write to it."""
+    m = _interp_matrix(n_in, n_out)
+    out = np.zeros((out_n, in_n), dtype=np.float32)
+    lo, hi = max(in_lo, 0), min(in_lo + in_n, n_in)
+    for i in range(out_n):
+        o = out_lo + i
+        if not 0 <= o < n_out:
+            continue
+        used = np.nonzero(m[o])[0]
+        if used.size and (used[0] < lo or used[-1] >= hi):
+            raise ValueError(f"output row {o} reads input rows "
+                             f"{used.tolist()}, outside {lo}..{hi - 1}")
+        out[i, lo - in_lo:hi - in_lo] = m[o, lo:hi]
+    with torch.inference_mode(False):
+        return torch.as_tensor(out, dtype=dtype).float().to(device)
+
+
 def upsample_bilinear_align_corners(x: torch.Tensor, out_h: int,
                                     out_w: int) -> torch.Tensor:
     """Resize (..., H, W) to (..., out_h, out_w), align_corners=True.

@@ -33,6 +33,17 @@ Counterpart of ``rsis_tpu/train/loop.py`` (``init_dataloaders``,
 Batches cross to the device from pinned host memory without blocking the
 host, two batches ahead. One ``torch.Generator`` on the device, seeded
 with ``cfg.seed``, feeds every step's device augmentation and dropouts.
+
+Under data parallelism (``group``, ``parallel/mesh.py``; ``cli/train.py``
+starts the ranks) every rank's loader yields the identically seeded
+global batch and the rank keeps its rows (``shard_batch``); the steps
+compute the global batch's metrics and gradients, so every rank takes the
+same decisions. The state starts from rank 0's (broadcast after the
+init, the resume, ``-torch_encoder`` or ``--transfer``); rank 0 alone
+writes the config, checkpoints, ``metrics.jsonl``, the log, snapshots
+and the dashboard, and a barrier follows each checkpoint; every rank
+reads a checkpoint back (resume, rollback). The other ranks print
+nothing. With one rank the loop is the one-process loop.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from ..device import resolve_device
 from ..evals.forward import make_forward
 from ..models.rsis import build_models
 from ..models.torch_import import init_encoder_from_torch
+from ..parallel.mesh import replicate, shard_batch
 from ..utils.dashboard import Dashboard
 from ..utils.monitor import Monitor
 from .checkpoint import (checkpoint_exists, load_checkpoint, load_weights,
@@ -91,11 +103,16 @@ class Trainer:
     """Trains ``cfg``'s model on ``device`` (default cuda; raises without a
     card). weights: (encoder state_dict, decoder state_dict) to start a
     fresh run from, or None for the modules' initialisation under
-    ``torch.manual_seed(cfg.seed)``."""
+    ``torch.manual_seed(cfg.seed)``. group: this rank's data-parallel
+    group (``parallel/mesh.py``), whose device the run takes, or None for
+    one process."""
 
-    def __init__(self, cfg: Config, device=None, weights=None):
+    def __init__(self, cfg: Config, device=None, weights=None, group=None):
         self.cfg = cfg
-        self.device = resolve_device(device, "Trainer")
+        self.group = group
+        self.device = (group.device if group is not None
+                       else resolve_device(device, "Trainer"))
+        self.main = group is None or group.rank == 0
         self.weights = weights
         self._steps: Dict[int, tuple] = {}  # T -> (train_step, eval_step)
         self._forwards: Dict[int, object] = {}  # T -> snapshot forward
@@ -105,7 +122,8 @@ class Trainer:
     def _get_steps(self, T: int):
         if T not in self._steps:
             self._steps[T] = make_train_step(self.cfg, T=T,
-                                             device=self.device)
+                                             device=self.device,
+                                             group=self.group)
         return self._steps[T]
 
     def current_T(self) -> int:
@@ -150,12 +168,21 @@ class Trainer:
     def run(self) -> TrainState:
         state, cfg, epoch_resume = self._initial_state(self.cfg)
         self.cfg = cfg
+        if self.group is not None:
+            replicate(self.group, list(state.tensors().values()))
+            # every rank has read what it resumes from before rank 0
+            # writes the config
+            self.group.barrier()
 
-        os.makedirs(model_dir(cfg), exist_ok=True)
-        cfg.save(os.path.join(model_dir(cfg), "args.json"))
+        if self.main:
+            os.makedirs(model_dir(cfg), exist_ok=True)
+            cfg.save(os.path.join(model_dir(cfg), "args.json"))
 
         log_fp = err_fp = None
-        if not cfg.log_term:
+        if not self.main:
+            log_fp = open(os.devnull, "w")
+            sys.stdout = log_fp
+        elif not cfg.log_term:
             log_path = os.path.join(model_dir(cfg), cfg.log_file)
             print("Training logs will be saved to:", log_path)
             # line-buffered; a resumed run appends to the earlier log
@@ -170,8 +197,9 @@ class Trainer:
             if cfg.curriculum_learning and epoch_resume == 0:
                 cfg = self.cfg = cfg.replace(limit_seqlen_to=2)
             loaders = init_dataloaders(cfg)
-            monitor = Monitor(model_dir(cfg), enable_snapshots=cfg.visdom)
-            if cfg.visdom:
+            monitor = (Monitor(model_dir(cfg), enable_snapshots=cfg.visdom)
+                       if self.main else None)
+            if cfg.visdom and self.main:
                 # a busy port must not stop the run: monitoring is optional
                 try:
                     self.dashboard = Dashboard(model_dir(cfg),
@@ -181,7 +209,8 @@ class Trainer:
             try:
                 state = self._epochs(state, loaders, monitor, epoch_resume)
             finally:
-                monitor.close()
+                if monitor is not None:
+                    monitor.close()
         finally:
             if log_fp is not None:
                 sys.stdout = sys.__stdout__
@@ -246,8 +275,9 @@ class Trainer:
                     for key, val in zip(("total", "iou", "stop", "class"),
                                         m):
                         losses[key].append(float(val))
-                    monitor.log(split, ep, batch_idx, m[0], m[1], m[2],
-                                m[3], T=T)
+                    if monitor is not None:
+                        monitor.log(split, ep, batch_idx, m[0], m[1], m[2],
+                                    m[3], T=T)
 
                     if (batch_idx + 1) % cfg.print_every == 0:
                         mt = np.mean(losses["total"])
@@ -285,7 +315,10 @@ class Trainer:
                 print("Saving checkpoint.")
                 best_val_loss = mt
                 cfg = self.cfg = cfg.replace(best_val_loss=best_val_loss)
-                save_checkpoint(cfg, state)
+                if self.main:
+                    save_checkpoint(cfg, state)
+                if self.group is not None:
+                    self.group.barrier()
                 acc_patience = 0
             else:
                 acc_patience += 1
@@ -339,14 +372,18 @@ class Trainer:
         """Predicted and ground-truth masks of the first sample of a val
         batch, through the inference forward on the trainer's device
         (kernels included); like the JAX package's, it draws a val batch
-        (one shuffle of the val loader) and a failure is printed, never
-        raised: snapshots must not stop training."""
+        (one shuffle of the val loader: every rank draws it, so the ranks'
+        loaders stay in step, and rank 0 alone runs the forward and writes)
+        and a failure is printed, never raised: snapshots must not stop
+        training."""
         try:
+            imgs, tgts = next(iter(loaders["val"]))
+            if not self.main:
+                return
             if T not in self._forwards:
                 with torch.random.fork_rng(devices=[]):
                     self._forwards[T] = make_forward(self.cfg, T=T,
                                                      device=self.device)
-            imgs, tgts = next(iter(loaders["val"]))
             x = normalize_image(imgs[:1])
             masks, clss, _ = (t.float().cpu().numpy() for t in
                               self._forwards[T]((state.encoder,
@@ -363,13 +400,16 @@ class Trainer:
             print(f"snapshot failed: {e}")
 
     def _device_prefetch(self, loader, depth: int = 2):
-        """Copy ``depth`` batches ahead to the device: each uint8 batch is
-        pinned on the host and copied without blocking, so the copy
-        overlaps the running step."""
+        """Copy ``depth`` batches ahead to the device: each uint8 batch
+        (this rank's rows of it under a group) is pinned on the host and
+        copied without blocking, so the copy overlaps the running step."""
         pending = collections.deque()
         cuda = self.device.type == "cuda"
         for batch in loader:
-            tensors = [torch.from_numpy(a) for a in batch]
+            if self.group is not None:
+                batch = shard_batch(self.group, batch)
+            tensors = [torch.from_numpy(np.ascontiguousarray(a))
+                       for a in batch]
             if cuda:
                 tensors = [t.pin_memory().to(self.device, non_blocking=True)
                            for t in tensors]
@@ -380,5 +420,5 @@ class Trainer:
             yield pending.popleft()
 
 
-def train(cfg: Config, device=None) -> TrainState:
-    return Trainer(cfg, device=device).run()
+def train(cfg: Config, device=None, group=None) -> TrainState:
+    return Trainer(cfg, device=device, group=group).run()

@@ -29,10 +29,26 @@ One step:
 
 There is no jit: the step runs eagerly on its device, which holds the
 state, and updates the state's modules and optimizer states in place.
+
+Data parallelism (``group``, ``parallel/mesh.py``; one process a device):
+each rank runs the step on its rows of the global batch and computes
+what one process computes on the whole global batch, as JAX's sharded
+step does. The augmentation's and the dropouts' draws are made at the
+global batch's shape from every rank's identically seeded generator and
+each rank keeps its rows; BatchNorm normalises with the global batch's
+statistics (``models/backbones.BatchNorm2d``); the losses divide by
+global denominators (``ops/losses.py``), so the global loss is the sum
+of the ranks' losses; the gradients are summed over the ranks, a few
+flat buckets at a time, before the update, and the metrics too. The
+modules are not wrapped in ``DistributedDataParallel``: the step takes
+its gradients with ``torch.autograd.grad``, which DDP's hooks do not
+see. No collective runs inside a rematerialised decode step (a
+recompute would reorder the ranks' collectives).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -55,6 +71,8 @@ from ..ops.losses import (masked_bce_loss, masked_nll_loss,
 from ..ops.mask_head import MaskHeadFunction, mask_head_ref
 from ..ops.matching import hungarian
 from ..ops.upsample import upsample_bilinear_align_corners
+from ..parallel.mesh import (all_reduce_tensors_, global_batch_stats,
+                             rows_of)
 from .optim import init_state, split_params, update_groups
 
 _MEAN = (0.485, 0.456, 0.406)
@@ -91,6 +109,24 @@ class TrainState:
                 for name, module in (("encoder", self.encoder),
                                      ("decoder", self.decoder))
                 for k, p in module.named_parameters()}
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the state in a fixed order: parameters and
+        BatchNorm statistics (``encoder.*`` / ``decoder.*``), then the
+        optimizer moments (``enc_opt.*`` / ``dec_opt.*``)."""
+        out = {f"{name}.{k}": t
+               for name, module in (("encoder", self.encoder),
+                                    ("decoder", self.decoder))
+               for k, t in module.state_dict().items()}
+        for name, opt in (("enc_opt", self.enc_opt),
+                          ("dec_opt", self.dec_opt)):
+            for key in sorted(opt):
+                val = opt[key]
+                items = (sorted(val.items()) if isinstance(val, dict)
+                         else [("", val)])
+                out.update({f"{name}.{key}.{k}": t for k, t in items
+                            if torch.is_tensor(t)})
+        return out
 
 
 def create_train_state(cfg: Config, weights=None, device=None) -> TrainState:
@@ -152,11 +188,12 @@ def _resolve_remat(cfg: Config, T: int) -> bool:
 
 def _forward_with_costs(cfg: Config, encoder, decoder, x, y_mask, T: int,
                         remat: bool = False, plain: bool = False,
-                        rng: torch.Generator | None = None):
+                        rng: torch.Generator | None = None, rows=None):
     """Encoder once and T decode steps, each with its cost column.
 
     rng feeds the decoder's dropouts when it needs one (training mode,
-    a rate above 0); the steps then take the plain decoder. Returns masks
+    a rate above 0); the steps then take the plain decoder. rows: this
+    rank's (offset, global batch), for the dropouts' draws. Returns masks
     (T, B, HW) logits in the compute dtype, class_probs (T, B, K) fp32,
     stop_logits (T, B) fp32 and costs (B, N, T) fp32 (no gradient)."""
     dtype = compute_dtype(cfg)
@@ -193,7 +230,8 @@ def _forward_with_costs(cfg: Config, encoder, decoder, x, y_mask, T: int,
         carry = None
 
         def step(carry):
-            (mask, cls, stop), carry = decoder(skips, carry, generator=rng)
+            (mask, cls, stop), carry = decoder(skips, carry, generator=rng,
+                                               rows=rows)
             return outputs(mask[:, 0], cls, stop), carry
 
     if remat:
@@ -225,14 +263,16 @@ def _checkpointed(step, rng: torch.Generator | None = None):
 
 
 def _losses(cfg: Config, masks, clss, stops, costs, y_mask, y_class,
-            sw_mask, sw_class, flags: StepFlags, solver):
+            sw_mask, sw_class, flags: StepFlags, solver, group=None):
     """Matched losses over the time-major predictions.
 
     masks (T, B, HW), clss (T, B, K), stops (T, B); costs (B, N, T). The
     GT gather emits (T, B) order directly; the weighted means do not
     depend on the order. solver maps (B, N, T) costs to the (B, N) perm:
-    ``hungarian``, the LAP kernel (K6) on CUDA tensors. Returns (total,
-    (iou, stop, class))."""
+    ``hungarian``, the LAP kernel (K6) on CUDA tensors (each rank solves
+    its own rows' problems). With a data-parallel group the losses are
+    this rank's share of the global batch's (global denominators).
+    Returns (total, (iou, stop, class))."""
     T, b = masks.shape[0], masks.shape[1]
     hw = masks.shape[-1]
     num_classes = clss.shape[-1]
@@ -248,14 +288,15 @@ def _losses(cfg: Config, masks, clss, stops, costs, y_mask, y_class,
     y_class_tb = y_class[brange, idx]                          # (T, B)
     swm_tb = sw_mask[:, :T].T
     loss_iou = soft_iou_loss(y_mask_tb.reshape(-1, hw),
-                             masks.reshape(-1, hw), swm_tb.reshape(-1))
+                             masks.reshape(-1, hw), swm_tb.reshape(-1),
+                             group=group)
     loss_class = masked_nll_loss(y_class_tb.reshape(-1),
                                  clss.reshape(-1, num_classes),
-                                 swm_tb.reshape(-1))
+                                 swm_tb.reshape(-1), group=group)
     # the stop head learns "keep going": target the mask sample weight,
     # weighted by the class sample weight
     loss_stop = masked_bce_loss(swm_tb, stops, sw_class[:, :T].T,
-                                cfg.stop_balance_weight)
+                                cfg.stop_balance_weight, group=group)
     total = (cfg.iou_weight * loss_iou
              + flags.use_class_loss * cfg.class_weight * loss_class
              + flags.use_stop_loss * cfg.stop_weight * loss_stop)
@@ -264,16 +305,20 @@ def _losses(cfg: Config, masks, clss, stops, costs, y_mask, y_class,
 
 def loss_and_grads(cfg: Config, state: TrainState, batch, flags: StepFlags,
                    T: int, remat: bool = False, plain: bool = False,
-                   device=None, rng: torch.Generator | None = None):
+                   device=None, rng: torch.Generator | None = None,
+                   group=None):
     """Forward and backward of one train step without the update, on
     ``device`` (default: the state's).
 
     rng: the step's ``torch.Generator``, needed with device augmentation
     or dropout: the augmentation draws from it first, then the dropouts.
+    group: the data-parallel group (``parallel/mesh.py``) whose ranks
+    each hold their rows of the global batch in ``batch``, or None.
 
     Returns (total, (iou, stop, class), grads): grads maps every parameter
     name of ``state.params()`` to its gradient (zeros where the loss does
-    not reach it). Updates the BatchNorm running statistics. plain=True
+    not reach it); under a group all three are the global batch's, summed
+    over the ranks. Updates the BatchNorm running statistics. plain=True
     replaces every kernel by its plain version (the oracle the kernels are
     held against on the card)."""
     state.encoder.train()
@@ -285,16 +330,21 @@ def loss_and_grads(cfg: Config, state: TrainState, batch, flags: StepFlags,
             or state.decoder.needs_generator()) and rng is None:
         raise ValueError("device augmentation and dropout draw from the "
                          "step's rng: pass a torch.Generator")
+    rows = rows_of(group, x.shape[0])
     if cfg.augment and cfg.augment_on_device:
         x, y_mask = augment_wire_batch(
             rng, x, y_mask, cfg.rotation, cfg.translation, cfg.shear,
-            zoom_range_for(cfg), plain=plain)
-    masks, clss, stops, costs = _forward_with_costs(
-        cfg, state.encoder, state.decoder, x, y_mask, T, remat=remat,
-        plain=plain, rng=rng)
+            zoom_range_for(cfg), plain=plain, rows=rows)
+    # one rank keeps F.batch_norm (or what a caller's
+    # global_batch_stats asks for)
+    with (global_batch_stats(group) if rows is not None
+          else contextlib.nullcontext()):
+        masks, clss, stops, costs = _forward_with_costs(
+            cfg, state.encoder, state.decoder, x, y_mask, T, remat=remat,
+            plain=plain, rng=rng, rows=rows)
     total, parts = _losses(cfg, masks, clss, stops, costs, y_mask, y_class,
                            sw_mask, sw_class, flags,
-                           functools.partial(hungarian, plain=plain))
+                           functools.partial(hungarian, plain=plain), group)
     params = state.params()
     # the backward's recomputed dropouts rewind rng; leave it where the
     # forward left it
@@ -305,11 +355,14 @@ def loss_and_grads(cfg: Config, state: TrainState, batch, flags: StepFlags,
         rng.set_state(after_forward)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)}
-    return total.detach(), tuple(p.detach() for p in parts), grads
+    metrics = torch.stack([total.detach(), *(p.detach() for p in parts)])
+    if group is not None:
+        all_reduce_tensors_(group, list(grads.values()) + [metrics])
+    return metrics[0], tuple(metrics[1:]), grads
 
 
 def make_train_step(cfg: Config, T: Optional[int] = None, device=None,
-                    remat: Optional[bool] = None):
+                    remat: Optional[bool] = None, group=None):
     """Build the train step for a fixed decode length T (default
     cfg.maxseqlen).
 
@@ -324,15 +377,21 @@ def make_train_step(cfg: Config, T: Optional[int] = None, device=None,
     augmentation from it and then the dropouts, and advances it;
     eval_step draws nothing. ``device`` (default cuda; raises without a
     card) is where the batches go and must hold the state. ``remat=None``
-    resolves from cfg.remat."""
-    device = resolve_device(device, "make_train_step")
+    resolves from cfg.remat. group: the data-parallel group
+    (``parallel/mesh.py``) of this rank, whose device the step runs on:
+    each batch holds this rank's rows of the global batch and both steps
+    return the global batch's metrics (train_step: and update by its
+    gradients), identical on every rank."""
+    device = (group.device if group is not None
+              else resolve_device(device, "make_train_step"))
     T = T or cfg.maxseqlen
     if remat is None:
         remat = _resolve_remat(cfg, T)
 
     def train_step(state: TrainState, batch, flags: StepFlags, rng=None):
         total, (loss_iou, loss_stop, loss_class), grads = loss_and_grads(
-            cfg, state, batch, flags, T, remat=remat, device=device, rng=rng)
+            cfg, state, batch, flags, T, remat=remat, device=device, rng=rng,
+            group=group)
         # gate closed: the backbone and its optimizer state stay as they
         # were (its BatchNorm statistics still move)
         state.enc_opt, state.dec_opt = update_groups(
@@ -350,7 +409,11 @@ def make_train_step(cfg: Config, T: Optional[int] = None, device=None,
         masks, clss, stops, costs = _forward_with_costs(
             cfg, state.encoder, state.decoder, x, y_mask, T)
         total, parts = _losses(cfg, masks, clss, stops, costs, y_mask,
-                               y_class, sw_mask, sw_class, flags, hungarian)
-        return torch.stack([total, *parts])
+                               y_class, sw_mask, sw_class, flags, hungarian,
+                               group)
+        metrics = torch.stack([total, *parts])
+        if group is not None:
+            all_reduce_tensors_(group, [metrics])
+        return metrics
 
     return train_step, eval_step

@@ -5,7 +5,11 @@
   own copies of what it needs;
 - an entry point asked for no device runs on CUDA, and raises where there
   is none, instead of running on the CPU (the trainer with each of its
-  options, ``cli.verify_parity --device`` too);
+  options, ``cli.verify_parity --device``, the process group's
+  ``initialize``, the streaming forward and ``cli.train -num_devices 2``
+  too);
+- the multi-process tests' worker (``tests/torch_dist_worker.py``)
+  imports neither jax nor rsis_tpu either;
 - importing the kernel modules needs no nvcc and compiles nothing: kernels
   build on their first CUDA use;
 - a kernel wrapper given a tensor that is neither on the CPU nor on a CUDA
@@ -112,6 +116,35 @@ def test_verify_parity_on_the_device_needs_cuda(tmp_path):
               "--device"])
 
 
+def test_dist_worker_imports_no_jax_and_no_reference_package():
+    worker = ROOT / "tests" / "torch_dist_worker.py"
+    roots = set(_imported_roots(worker))
+    assert "rsis_tpu_torch" in roots
+    assert roots & FORBIDDEN == set()
+
+
+def test_parallel_entry_points_without_device_need_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is usable")
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.cli.train import main
+    from rsis_tpu_torch.evals.streaming import (make_streaming_forward,
+                                                spatial_mesh)
+    from rsis_tpu_torch.parallel import Group, initialize
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize("127.0.0.1:1", 2, 0)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spatial_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_streaming_forward(Config(base_model="tiny", hidden_size=16),
+                               Group(0, 1, torch.device("cuda")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-dataset", "synthetic", "-base_model", "tiny",
+              "-num_devices", "2", "-models_root", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
 def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
     code = (
         "import subprocess\n"
@@ -136,6 +169,9 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
         "import rsis_tpu_torch.models.torch_import\n"
         "import rsis_tpu_torch.utils.profiling\n"
         "import rsis_tpu_torch.utils.plot_curves\n"
+        "import rsis_tpu_torch.parallel, rsis_tpu_torch.evals.streaming\n"
+        "import rsis_tpu_torch.evals.cvppp_harness\n"
+        "import rsis_tpu_torch.data.tools.pascalplus_gen\n"
         "import rsis_tpu_torch.kernels._binding as rle\n"
         "assert rle._lib is None\n"
         "assert b.load.cache_info().currsize == 0\n"
