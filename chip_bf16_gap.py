@@ -51,17 +51,13 @@ def main() -> int:
     import numpy as np
     import chip_smoke as cs
     from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
-    from rsis_tpu_torch.models.rsis import build_models
     from rsis_tpu_torch.train import step as ts
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     b, T = args.batch, args.steps
     cfg = cs.train_config(b, T)
-    torch.manual_seed(args.seed)
-    enc, dec = build_models(cfg)
-    weights = (enc.state_dict(), dec.state_dict())
-    del enc, dec
+    weights = cs.fresh_weights(cfg, args.seed)
     img, tgt = synthetic_wire_batch(np.random.default_rng(args.seed), b,
                                     *cs.TRAIN_HW, cfg.gt_maxseqlen,
                                     cfg.num_classes)

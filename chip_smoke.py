@@ -99,6 +99,18 @@ Phases, each fatal on failure:
      mul) on two row slabs against the unsharded forward within 1e-4,
      K1 (concat) or K8 (mul) 5 T and K2 T launches a rank, each rank's
      peak memory beside the unsharded forward's;
+  4e. the train -> eval arc of TRAINRUN.md (the JAX package's soak on a
+     TPU) at full width: 128 synthetic images of up to 8 instances, 5
+     classes, 256x256, B=16, T from 2 to 8 under curriculum learning,
+     bf16, device augmentation; the fresh weights (``models/rsis.
+     init_weights``) scored by ``cli.soak_eval``, ``cli.train`` in this
+     process (K1-K7's launches counted), ``--resume`` in a child process,
+     and the best checkpoint scored: a T growth, the class and stop
+     losses switched on, a best-val save, a rollback and the resumed
+     stage's epochs found in the log, the val total at the last T at
+     most 0.9 x the first epoch's, the trained SBD above the fresh
+     weights'; ``--soak full`` runs TRAINRUN.md's three stages
+     (max_epoch 24, class and stop losses left to the patience rule);
   5. timings after warm-up: encoder, decode step, images per second and
      train ms per step from CUDA events or host clocks around whole,
      synchronised calls; each kernel's device time (CUDA-graph replay)
@@ -115,7 +127,7 @@ without a CUDA device or without the ``rsis_tpu_torch`` package beside it.
 Usage: python3 chip_smoke.py [--batch 4] [--steps 10] [--batches 3]
                              [--train-batch 8] [--train-steps 5]
                              [--seed 0] [--out FILE]
-                             [--profile]
+                             [--profile] [--soak short|full]
 (--batch 32 --steps 20 --batches 1 is the decode bench geometry,
 --train-batch 32 --train-steps 20 the train bench geometry.)
 """
@@ -838,6 +850,14 @@ def cuda_generator(seed: int) -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
+def fresh_weights(cfg, seed: int):
+    """(encoder, decoder) state_dicts of a fresh model drawn as the JAX
+    package draws one (``models/rsis.init_weights``), from a CPU generator
+    seeded with ``seed``."""
+    from rsis_tpu_torch.models.rsis import init_weights
+    return init_weights(cfg, torch.Generator().manual_seed(seed))
+
+
 def warp_cases(b: int, gen):
     """(name, image, ids, matrices, flip) of K7's checks at the train
     geometry: fp32 and bf16 images with a uint8 id plane, random flips and
@@ -1027,16 +1047,12 @@ def train_phase(args, out_dir) -> dict:
     the three dropouts."""
     import numpy as np
     from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
-    from rsis_tpu_torch.models.rsis import build_models
     from rsis_tpu_torch.train import step as ts
 
     b, T = args.train_batch, args.train_steps
     hh, ww = TRAIN_HW
     cfg = train_config(b, T)
-    torch.manual_seed(args.seed)
-    enc, dec = build_models(cfg)
-    weights = (enc.state_dict(), dec.state_dict())
-    del enc, dec
+    weights = fresh_weights(cfg, args.seed)
     img, tgt = synthetic_wire_batch(np.random.default_rng(args.seed), b, hh,
                                     ww, cfg.gt_maxseqlen, cfg.num_classes)
     batch = (torch.from_numpy(img).cuda(), torch.from_numpy(tgt).cuda())
@@ -1765,9 +1781,7 @@ def mul_forward_phase(args, xs) -> dict:
     b, height, width = xs[0].shape[:3]
     cfg = Config(base_model="resnet101", hidden_size=128, num_classes=9,
                  skip_mode="mul", maxseqlen=T, compute_dtype="bfloat16")
-    torch.manual_seed(args.seed)
-    enc, dec = build_models(cfg)
-    weights = (enc.state_dict(), dec.state_dict())
+    weights = fresh_weights(cfg, args.seed)
     fwd = make_forward(cfg, T=T)
     counters = forward_counters()
     for fn in counters.values():
@@ -1928,7 +1942,6 @@ def eval_phase(args, out_dir, models) -> dict:
     from rsis_tpu_torch.cli import eval as cli_eval
     from rsis_tpu_torch.cli import eval_cityscapes, eval_leaves, predict
     from rsis_tpu_torch.data.tools.pascal_precompute import run as precompute
-    from rsis_tpu_torch.models.rsis import build_models
     from rsis_tpu_torch.train.checkpoint import save_checkpoint
     from rsis_tpu_torch.train.step import create_train_state
 
@@ -1948,12 +1961,9 @@ def eval_phase(args, out_dir, models) -> dict:
                          num_classes=n_cls, skip_mode=skip,
                          compute_dtype="bfloat16", models_root=models,
                          model_name=name)
-            torch.manual_seed(args.seed)
-            enc, dec = build_models(cfg)
-            state = create_train_state(cfg, (enc.state_dict(),
-                                             dec.state_dict()))
+            state = create_train_state(cfg, fresh_weights(cfg, args.seed))
             save_checkpoint(cfg, state)
-            del state, enc, dec
+            del state
         log(f"eval phase set-up (trees, precompute, two checkpoints): "
             f"{time.perf_counter() - t0:.2f} s")
         common = ["-models_root", models, "--log_term", "-seed",
@@ -2129,31 +2139,25 @@ def parallel_step_setup(args):
     dropouts on), seeded weights and global wire batch (host)."""
     import numpy as np
     from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
-    from rsis_tpu_torch.models.rsis import build_models
     b, T = PARALLEL_STEP
     cfg = train_config(b, T, "float32").replace(
         dropout=0.2, dropout_cls=0.2, dropout_stop=0.2)
-    torch.manual_seed(args.seed)
-    enc, dec = build_models(cfg)
     batch = synthetic_wire_batch(np.random.default_rng(args.seed), b,
                                  *TRAIN_HW, cfg.gt_maxseqlen,
                                  cfg.num_classes)
-    return cfg, (enc.state_dict(), dec.state_dict()), batch
+    return cfg, fresh_weights(cfg, args.seed), batch
 
 
 def stream_setup(args, skip_mode: str):
     """The streaming forward's config (resnet101, hidden 128, 9 classes,
     T=20, fp32), seeded weights and one seeded 1024x2048 frame (host)."""
     from rsis_tpu_torch import Config
-    from rsis_tpu_torch.models.rsis import build_models
     cfg = Config(base_model="resnet101", hidden_size=128,
                  num_classes=STREAM_CLASSES, skip_mode=skip_mode,
                  maxseqlen=STREAM_T, compute_dtype="float32")
-    torch.manual_seed(args.seed)
-    enc, dec = build_models(cfg)
     x = torch.randn((1,) + STREAM_HW + (3,),
                     generator=torch.Generator().manual_seed(args.seed))
-    return cfg, (enc.state_dict(), dec.state_dict()), x
+    return cfg, fresh_weights(cfg, args.seed), x
 
 
 def parallel_rank(args) -> int:
@@ -2283,7 +2287,6 @@ def parallel_phase(args, out_dir) -> dict:
     import shutil
     import tempfile
     from rsis_tpu_torch.evals.forward import make_forward
-    from rsis_tpu_torch.models.rsis import build_models
     from rsis_tpu_torch.parallel import create_mesh, initialize, shutdown
     from rsis_tpu_torch.train import step as ts
     t_phase = time.perf_counter()
@@ -2297,9 +2300,7 @@ def parallel_phase(args, out_dir) -> dict:
     from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
     b, T = args.train_batch, args.train_steps
     cfg = train_config(b, T)
-    torch.manual_seed(args.seed)
-    enc, dec = build_models(cfg)
-    weights = (enc.state_dict(), dec.state_dict())
+    weights = fresh_weights(cfg, args.seed)
     batch = tuple(torch.from_numpy(a).cuda() for a in synthetic_wire_batch(
         np.random.default_rng(args.seed), b, *TRAIN_HW, cfg.gt_maxseqlen,
         cfg.num_classes))
@@ -2351,7 +2352,7 @@ def parallel_phase(args, out_dir) -> dict:
         f"steps {world1_s:.2f} s")
     out["world1"] = {"launches": launches, "seconds": world1_s,
                      "tensors": len(s_a)}
-    del s_a, s_b, s_c, enc, dec, weights, batch
+    del s_a, s_b, s_c, weights, batch
     out["world1_trainer"] = world1_trainer(args)
 
     # references for the world-2 run on this process: the step on the
@@ -2521,6 +2522,262 @@ def parallel_phase(args, out_dir) -> dict:
     return out
 
 
+# phase 4e: TRAINRUN.md's recipe (the JAX package's soak on a TPU v5e):
+# 128 synthetic images of up to 8 instances, 5 classes, 256x256, B=16,
+# T from 2 to 8 by 2 on the patience rule, resnet101, hidden 128, bf16,
+# device augmentation; the eval flags are its soak_eval invocation's
+SOAK_DATA = ["-dataset", "synthetic", "-synthetic_length", "128",
+             "-synthetic_max_instances", "8", "-num_classes", "5",
+             "-imsize", "256", "--resize", "-maxseqlen", "8",
+             "-gt_maxseqlen", "10", "-batch_size", "16"]
+SOAK_TRAIN = ["-base_model", "resnet101", "-hidden_size", "128",
+              "--curriculum_learning", "-steps_cl", "2", "-min_steps", "2",
+              "-patience", "1", "-patience_stop", "8", "-finetune_after",
+              "0", "--augment", "-lr_cnn", "1e-4", "-compute_dtype",
+              "bfloat16", "-min_delta", "0.005"]
+# (max_epoch, class_loss_after, stop_loss_after, resumed stages) by size:
+# "full" is TRAINRUN.md's three commands. "short" (the default run) leaves
+# the class loss to the patience rule, whose escalation is the only one
+# that can roll back while T is 2 (read on an H100: after epoch 9-11),
+# and turns the stop loss on by its schedule at the epoch after the first
+# T growth (the next plateau: after epoch 17-20); a resumed stage runs the
+# saved max_epoch again from the checkpointed epoch, so 14 a stage reach
+# epoch 25 or so
+SOAK_SIZES = {"short": (14, 1000, 0, 1), "full": (24, 1000, 1000, 2)}
+SOAK_BUDGET_S = 130.0              # the short arc's wall, builds excluded
+# the best checkpoint's val total over the first epoch's, both at the
+# run's last T with the three losses on: every event adds a loss term or
+# decode steps, so the logged totals of two epochs are not comparable
+SOAK_VAL_FALL = 0.9
+SOAK_JAX_TPU = {"SBD": 0.4832, "absDiC": 1.0078}   # TRAINRUN.md, TPU v5e
+SOAK_STAGE_TIMEOUT = {"short": 300, "full": 1800}  # a resumed stage, s
+ESCALATIONS = ("Starting to learn class loss", "Starting to learn stop loss",
+               "Starting to update encoder")
+
+
+def soak_events(text: str) -> dict:
+    """The trainer's events in a ``train.log``: epoch headers, (val)
+    totals, best-val saves, T growths, each loss switched on, and the
+    escalations of the patience rule (printed after an epoch's val line,
+    where the schedule's are printed after its header), each of which
+    rolls back to the best checkpoint once one was saved."""
+    ev = {"headers": [], "val_totals": [], "saves": 0, "t_growths": [],
+          "switched": [], "rollbacks": 0}
+    after_val = saved = rolled = False
+    lines = text.splitlines()
+    for i, ln in enumerate(lines):
+        if ln.startswith("Epoch ") and ":" not in ln:
+            ev["headers"].append(int(ln.split()[1]))
+            after_val = rolled = False
+        elif ln.startswith("Epoch ") and ln.endswith("(val)"):
+            ev["val_totals"].append(float(ln.split("total:")[1].split()[0]))
+            after_val = True
+        elif ln == "Saving checkpoint.":
+            ev["saves"] += 1
+            saved = True
+        elif ln == "Adding one step more:":
+            ev["t_growths"].append(int(lines[i + 1]))
+        elif ln in ESCALATIONS:
+            ev["switched"].append(ln)
+            # one rollback an epoch, however many escalations
+            ev["rollbacks"] += after_val and saved and not rolled
+            rolled = rolled or (after_val and saved)
+    return ev
+
+
+def soak_phase(args) -> dict:
+    """Phase 4e: the train -> eval arc of TRAINRUN.md at full width. The
+    fresh weights scored by ``cli.soak_eval`` (the baseline), ``cli.train``
+    in this process, ``--resume`` in a child process (once, or twice with
+    --soak full), the best checkpoint scored; the events of the log, the
+    val total's fall from the first epoch's weights to the best
+    checkpoint's (SOAK_VAL_FALL), the score against the baseline and
+    K1-K7's launches in this process's stage are checked."""
+    import io
+    import shutil
+    import tempfile
+    from rsis_tpu_torch.cli.soak_eval import main as soak_eval_main
+    from rsis_tpu_torch.cli.train import main as train_main
+    from rsis_tpu_torch.config import Config, config_from_args
+    from rsis_tpu_torch.train import loop as train_loop
+    from rsis_tpu_torch.train import step as ts
+    from rsis_tpu_torch.train.checkpoint import load_weights, save_checkpoint
+
+    t_phase = time.perf_counter()
+    max_epoch, class_after, stop_after, resumes = SOAK_SIZES[args.soak]
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_soak_",
+                            dir=os.path.join(here, "build"))
+    where = ["-models_root", root, "-model_name", "soak"]
+    argv = (where + SOAK_DATA + SOAK_TRAIN
+            + ["-max_epoch", str(max_epoch), "-class_loss_after",
+               str(class_after), "-stop_loss_after", str(stop_after),
+               "-seed", str(args.seed)])
+    d = os.path.join(root, "soak")
+
+    def score(name):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = soak_eval_main(["-models_root", root, "-model_name", name]
+                                 + SOAK_DATA)
+        log(f"  | soak_eval {name}: {buf.getvalue().strip()}")
+        return {k: v for k, v in res.items() if k != "labels"}
+
+    def read(name):
+        with open(os.path.join(d, name)) as fp:
+            return fp.read()
+
+    try:
+        # the weights stage 1 starts from, as a checkpoint of their own
+        cfg0 = config_from_args(argv).replace(model_name="init")
+        save_checkpoint(cfg0, ts.create_train_state(
+            cfg0, train_loop.init_weights(cfg0)))
+        base = score("init")
+
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        # stage 1's rollbacks (every load of a fresh run) and its first
+        # best-val save (the first epoch's weights), kept apart
+        loads = []
+        real_load = train_loop.load_checkpoint
+        real_save = train_loop.save_checkpoint
+
+        def counted_load(*a, **k):
+            loads.append(a[0].epoch_resume)
+            return real_load(*a, **k)
+
+        def first_save(cfg, state, *a, **k):
+            if cfg.epoch_resume == 0:
+                real_save(cfg, state, "epoch0")
+            return real_save(cfg, state, *a, **k)
+
+        train_loop.load_checkpoint = counted_load
+        train_loop.save_checkpoint = first_save
+        t0 = time.perf_counter()
+        try:
+            train_main(argv)
+        finally:
+            train_loop.load_checkpoint = real_load
+            train_loop.save_checkpoint = real_save
+        torch.cuda.synchronize()
+        stage_s = [time.perf_counter() - t0]
+        launches = {k: fn.launches for k, fn in counters.items()}
+        stage_logs = [read("train.log")]
+        resumed_from = []
+        for _ in range(resumes):
+            resumed_from.append(Config.load(os.path.join(
+                d, "args.json")).epoch_resume)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "rsis_tpu_torch.cli.train",
+                 "--resume", "-dataset", "synthetic"] + where,
+                cwd=here, capture_output=True, text=True,
+                timeout=SOAK_STAGE_TIMEOUT[args.soak])
+            stage_s.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                err = (read("train.err")[-4000:] if os.path.exists(
+                    os.path.join(d, "train.err")) else "")
+                raise SystemExit(
+                    f"soak: the resumed stage exited {proc.returncode}:\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}\n{err}")
+            stage_logs.append(read("train.log")[sum(map(len, stage_logs)):])
+        trained = score("soak")
+        final_cfg = Config.load(os.path.join(d, "args.json"))
+        records = [json.loads(ln) for ln in
+                   read("metrics.jsonl").splitlines()]
+        # the first epoch's and the best checkpoint's val totals at the
+        # run's last T, the three losses on
+        last_T = records[-1]["T"]
+        _, eval_step = ts.make_train_step(final_cfg, T=last_T)
+        flags = ts.StepFlags(1.0, 1.0, 1.0)
+        batches = [[torch.from_numpy(a).cuda() for a in batch] for batch
+                   in train_loop.init_dataloaders(final_cfg)["val"]]
+        val_total = {}
+        for name in ("epoch0", "soak"):
+            state = ts.create_train_state(final_cfg, load_weights(
+                final_cfg, name))
+            val_total[name] = sum(eval_step(state, batch, flags)[0].item()
+                                  for batch in batches) / len(batches)
+            del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    evs = [soak_events(text) for text in stage_logs]
+    ev = soak_events("".join(stage_logs))
+    for i, e in enumerate(evs):
+        log(f"  soak stage {i + 1}: epochs {e['headers']}, val totals "
+            f"{e['val_totals']}, {e['saves']} saves, T growths "
+            f"{e['t_growths']}, {e['switched']}, {e['rollbacks']} "
+            f"rollbacks, {stage_s[i]:.2f} s")
+    # the loop's time per train step: consecutive train batches of an
+    # epoch (data loading, prefetch and logging included), by T
+    gaps = {}
+    for r1, r2 in zip(records, records[1:]):
+        if (r1["split"] == r2["split"] == "train"
+                and r1["epoch"] == r2["epoch"] and r1["T"] == r2["T"]):
+            gaps.setdefault(r1["T"], []).append(r2["t"] - r1["t"])
+    step_ms = {t: 1e3 * sum(g) / len(g) for t, g in sorted(gaps.items())}
+    wall = time.perf_counter() - t_phase
+    out = {"size": args.soak, "max_epoch": max_epoch,
+           "class_loss_after": class_after, "stop_loss_after": stop_after,
+           "stage_s": stage_s, "wall_s": wall, "epochs": len(ev["headers"]),
+           "headers": [e["headers"] for e in evs],
+           "val_totals": ev["val_totals"], "saves": ev["saves"],
+           "t_growths": ev["t_growths"], "switched": ev["switched"],
+           "rollbacks": ev["rollbacks"], "stage1_rollback_epochs": loads,
+           "resumed_from": resumed_from, "launches": launches,
+           "loop_ms_per_train_step": step_ms, "last_T": last_T,
+           "val_total_at_last_T": val_total, "baseline": base,
+           "trained": trained, "jax_tpu_record": SOAK_JAX_TPU}
+    log(f"soak ({args.soak}): {out['epochs']} epochs in {len(stage_s)} "
+        f"stages, {wall:.1f} s (budget {SOAK_BUDGET_S:.0f} s for the short "
+        f"arc); logged val total {ev['val_totals'][0]:.4f} -> "
+        f"{ev['val_totals'][-1]:.4f} (ratio "
+        f"{ev['val_totals'][-1] / ev['val_totals'][0]:.4f}); at T={last_T} "
+        f"with the three losses the first epoch's weights "
+        f"{val_total['epoch0']:.4f}, the best checkpoint's "
+        f"{val_total['soak']:.4f} (ratio "
+        f"{val_total['soak'] / val_total['epoch0']:.4f}, limit "
+        f"{SOAK_VAL_FALL}); loop ms per train step by T "
+        f"{ {t: round(v, 3) for t, v in step_ms.items()} }; SBD "
+        f"{trained['SBD']:.4f} |DiC| {trained['absDiC']:.4f} (untrained "
+        f"{base['SBD']:.4f} / {base['absDiC']:.4f}; the JAX package's "
+        f"TPU v5e record {SOAK_JAX_TPU['SBD']} / {SOAK_JAX_TPU['absDiC']});"
+        f" launches in stage 1 {launches}")
+
+    faults = []
+    if not ev["t_growths"]:
+        faults.append("no curriculum T growth")
+    for flag, line in (("use_class_loss", ESCALATIONS[0]),
+                       ("use_stop_loss", ESCALATIONS[1])):
+        if line not in ev["switched"] or not getattr(final_cfg, flag):
+            faults.append(f"{flag} never switched on")
+    if not ev["saves"] or not ev["rollbacks"]:
+        faults.append("no best-val save or no rollback")
+    if len(loads) != evs[0]["rollbacks"]:
+        faults.append(f"stage 1 rolled back {len(loads)} times, its log "
+                      f"says {evs[0]['rollbacks']}")
+    for e, start in zip(evs[1:], resumed_from):
+        if not e["headers"] or e["headers"][0] != start or e["headers"] \
+                != list(range(start, start + len(e["headers"]))):
+            faults.append(f"a resumed stage ran epochs {e['headers']}, not "
+                          f"on from the checkpointed epoch {start}")
+    if not val_total["soak"] <= SOAK_VAL_FALL * val_total["epoch0"]:
+        faults.append(f"the val total at T={last_T} fell from "
+                      f"{val_total['epoch0']} (the first epoch) to "
+                      f"{val_total['soak']} only")
+    if not trained["SBD"] > base["SBD"]:
+        faults.append(f"SBD {trained['SBD']} not above the untrained "
+                      f"{base['SBD']}")
+    if not all(launches.values()):
+        faults.append(f"a kernel never launched in stage 1: {launches}")
+    if faults:
+        raise SystemExit("soak: " + "; ".join(faults))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -2532,6 +2789,9 @@ def main() -> int:
     ap.add_argument("--train-batch", type=int, default=8)
     ap.add_argument("--train-steps", type=int, default=5,
                     help="decode steps T of the train step")
+    ap.add_argument("--soak", choices=sorted(SOAK_SIZES), default="short",
+                    help="phase 4e's train -> eval arc: short, or "
+                    "TRAINRUN.md's three stages (full)")
     ap.add_argument("--profile", action="store_true",
                     help="print device time by operation for one forward "
                     "and one train step")
@@ -2658,9 +2918,7 @@ def main() -> int:
     cfg = Config(base_model="resnet101", hidden_size=hidden, num_classes=9,
                  skip_mode="concat", maxseqlen=args.steps,
                  compute_dtype="bfloat16")
-    torch.manual_seed(args.seed)
-    enc, dec = build_models(cfg)
-    weights = (enc.state_dict(), dec.state_dict())
+    weights = fresh_weights(cfg, args.seed)
     fwd = make_forward(cfg, T=args.steps)
     xs = [torch.randn(b, height, width, 3, generator=gen, device="cuda")
           for _ in range(args.batches)]
@@ -2747,6 +3005,7 @@ def main() -> int:
     finally:
         shutil.rmtree(models, ignore_errors=True)
     parallel = parallel_phase(args, out_dir)
+    soak = soak_phase(args)
 
     # ---- 5. timings ----------------------------------------------------
     encoder = enc_p
@@ -2865,6 +3124,7 @@ def main() -> int:
                        "train": train, "train_batch": tb,
                        "trainer": trainer, "options": options,
                        "parallel": parallel,
+                       "soak": soak,
                        "warp": warp,
                        "backward_cells": {k: v["cells"]
                                           for k, v in bwd.items()},

@@ -1,7 +1,9 @@
-"""Model assembly, the plain decode loop and the inference forward.
+"""Model assembly, the fresh initialisation, the plain decode loop and the
+inference forward.
 
 Counterpart of ``rsis_tpu/models/rsis.py`` (``compute_dtype``,
-``build_models``, ``decode_sequence``, ``forward``). The encoder runs once;
+``build_models``, ``init_variables`` as ``init_weights``,
+``decode_sequence``, ``forward``). The encoder runs once;
 the decoder runs exactly T steps (no early stop) in a Python loop; masks
 are upsampled to the input size and the mask and stop sigmoids applied.
 Skip modes concat/sum/none with 3x3 convolutions decode through the
@@ -13,9 +15,11 @@ the mask head kernel K2 in inference.
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Dict, Tuple
 
 import torch
+from torch import nn
 
 from ..config import Config
 from ..ops.upsample import upsample_bilinear_align_corners
@@ -30,7 +34,9 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 def build_models(cfg: Config) -> Tuple[FeatureExtractor, RSISDecoder]:
     """Fresh (encoder, decoder) modules in eval mode, fp32 parameters on
-    the CPU, initialised from the global torch seed."""
+    the CPU, with PyTorch's module initialisation from the global torch
+    seed (a template that weights are loaded into; ``init_weights`` draws
+    a fresh model)."""
     encoder = FeatureExtractor(base_model=cfg.base_model,
                                hidden_size=cfg.hidden_size,
                                kernel_size=cfg.kernel_size)
@@ -41,6 +47,46 @@ def build_models(cfg: Config) -> Tuple[FeatureExtractor, RSISDecoder]:
                           dropout_cls=cfg.dropout_cls,
                           dropout_stop=cfg.dropout_stop)
     return encoder.eval(), decoder.eval()
+
+
+# the std of a standard normal truncated to [-2, 2]: flax's truncated
+# variance scaling divides by it so the drawn weights keep the variance
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def init_weights(cfg: Config, generator: torch.Generator
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(encoder, decoder) state_dicts of a fresh model, fp32 on the CPU,
+    drawn as the JAX package's ``init_variables`` draws one (flax's
+    defaults): every conv and linear weight from ``lecun_normal``, a
+    normal truncated to two standard deviations whose variance is
+    1 / fan_in (fan_in: in_channels x kh x kw, or in_features); every
+    bias 0; BatchNorm weight 1, bias 0, running mean 0, running var 1.
+
+    The draws come from ``generator`` (a CPU generator, which the caller
+    seeds), module by module in registration order; the global torch
+    generator is neither read nor advanced."""
+    with torch.device("meta"):
+        models = build_models(cfg)
+    out = []
+    for model in models:
+        model.to_empty(device="cpu")
+        for name, m in model.named_modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) \
+                    / TRUNCATED_NORMAL_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+            elif (list(m.parameters(recurse=False))
+                  or list(m.buffers(recurse=False))):
+                raise TypeError(f"init_weights: no rule for {name} "
+                                f"({type(m).__name__})")
+        out.append(model.state_dict())
+    return out[0], out[1]
 
 
 def decode_sequence(decoder: RSISDecoder, skips, T: int, carry=None,

@@ -64,7 +64,7 @@ from ..data.catalogs import get_dataset
 from ..data.pipeline import DataLoader
 from ..device import resolve_device
 from ..evals.forward import make_forward
-from ..models.rsis import build_models
+from ..models.rsis import init_weights as fresh_weights
 from ..models.torch_import import init_encoder_from_torch
 from ..parallel.mesh import replicate, shard_batch
 from ..utils.dashboard import Dashboard
@@ -90,22 +90,18 @@ def init_dataloaders(cfg: Config):
 
 
 def init_weights(cfg: Config):
-    """(encoder, decoder) state_dicts of the modules' initialisation under
-    ``torch.manual_seed(cfg.seed)``, the global generator left as it
-    was."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        encoder, decoder = build_models(cfg)
-    return encoder.state_dict(), decoder.state_dict()
+    """(encoder, decoder) state_dicts of a fresh model drawn as the JAX
+    package draws one (``models/rsis.init_weights``), from a generator
+    seeded with ``cfg.seed``."""
+    return fresh_weights(cfg, torch.Generator().manual_seed(cfg.seed))
 
 
 class Trainer:
     """Trains ``cfg``'s model on ``device`` (default cuda; raises without a
     card). weights: (encoder state_dict, decoder state_dict) to start a
-    fresh run from, or None for the modules' initialisation under
-    ``torch.manual_seed(cfg.seed)``. group: this rank's data-parallel
-    group (``parallel/mesh.py``), whose device the run takes, or None for
-    one process."""
+    fresh run from, or None for ``init_weights(cfg)``. group: this rank's
+    data-parallel group (``parallel/mesh.py``), whose device the run
+    takes, or None for one process."""
 
     def __init__(self, cfg: Config, device=None, weights=None, group=None):
         self.cfg = cfg
@@ -140,8 +136,13 @@ class Trainer:
         tried in that order. A transfer whose source has no checkpoint
         starts fresh, as the reference does."""
         if cfg.resume and checkpoint_exists(cfg):
-            template = create_train_state(
-                cfg, self.weights or init_weights(cfg), device=self.device)
+            # the template takes the saved model's architecture, so that
+            # ``--resume`` needs no other flag (JAX's restore reads shapes
+            # from the checkpoint)
+            saved_cfg = Config.load(os.path.join(model_dir(cfg),
+                                                 "args.json"))
+            template = create_train_state(saved_cfg, self.weights,
+                                          device=self.device)
             state, saved_cfg = load_checkpoint(cfg, template)
             # the saved config takes precedence, like the reference's
             cfg = saved_cfg.replace(resume=True)

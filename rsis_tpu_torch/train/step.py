@@ -65,7 +65,7 @@ from ..models.rowmajor_decoder import (CHANNEL_SEPARABLE,
                                        _hoist_cells_rowmajor,
                                        init_carry_rowmajor,
                                        rowmajor_decoder_step)
-from ..models.rsis import build_models, compute_dtype
+from ..models.rsis import build_models, compute_dtype, init_weights
 from ..ops.losses import (masked_bce_loss, masked_nll_loss,
                           soft_iou_cost_matmul, soft_iou_loss)
 from ..ops.mask_head import MaskHeadFunction, mask_head_ref
@@ -133,14 +133,15 @@ def create_train_state(cfg: Config, weights=None, device=None) -> TrainState:
     """A fresh state on ``device`` (default cuda; raises without a card).
 
     weights: (encoder state_dict, decoder state_dict) in the reference key
-    layout (``models/weights.py``), or None for the modules' own
-    initialisation from the global torch seed. Optimizer moments start at
-    zero."""
+    layout (``models/weights.py``), or None for a fresh model drawn as
+    the JAX package draws one (``models/rsis.init_weights``, its generator
+    seeded with ``cfg.seed``). Optimizer moments start at zero."""
     device = resolve_device(device, "create_train_state")
+    if weights is None:
+        weights = init_weights(cfg, torch.Generator().manual_seed(cfg.seed))
     encoder, decoder = build_models(cfg)
-    if weights is not None:
-        encoder.load_state_dict(weights[0])
-        decoder.load_state_dict(weights[1])
+    encoder.load_state_dict(weights[0])
+    decoder.load_state_dict(weights[1])
     state = TrainState(encoder.to(device), decoder.to(device), {}, {})
     enc_p, dec_p = split_params(state.params())
     state.enc_opt = init_state(cfg.optim_cnn, enc_p, cfg.momentum)

@@ -7,7 +7,8 @@
   schedule flips, a checkpoint and a patience escalation with its rollback
   happen): the same event lines, and every loss printed within 1e-4.
 - Resume: the run continues from the checkpointed epoch (the reference's
-  ``epoch_resume``), not at 0; ``metrics.jsonl`` grows.
+  ``epoch_resume``), not at 0; ``metrics.jsonl`` grows; ``--resume`` with
+  no other flag builds the saved model, not the invocation's defaults.
 - ``decoder.pt`` read by the JAX package's ``torch_import`` gives the JAX
   arrays it was made from, exactly.
 - One CPU step with device augmentation and all three dropouts gives a
@@ -29,6 +30,7 @@ from rsis_tpu.config import Config as JaxConfig
 from rsis_tpu.models import rsis as jax_rsis
 from rsis_tpu.models.torch_import import import_decoder, load_state_dict_file
 from rsis_tpu.train import loop as jax_loop
+from rsis_tpu_torch.cli.train import main as train_main
 from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.data.synthetic import synthetic_wire_batch
 from rsis_tpu_torch.models import decoder as port_decoder
@@ -120,6 +122,25 @@ def test_resume_continues_from_the_checkpointed_epoch(runs, capsys):
     assert headers == [saved.epoch_resume + e for e in range(3)]
     with open(os.path.join(d, "metrics.jsonl")) as fp:
         assert len(fp.readlines()) > n_before
+
+
+def test_resume_takes_the_architecture_from_the_checkpoint(runs, capsys):
+    """``--resume`` with no flag but where the model is: the saved config
+    (tiny, 3 classes, --log_term) builds the state, not the invocation's
+    defaults (resnet101, 21 classes), as TRAINRUN.md's resumed stages
+    run."""
+    _, cfg, _ = runs
+    start = Config.load(os.path.join(model_dir(cfg),
+                                     "args.json")).epoch_resume
+    capsys.readouterr()
+    state = train_main(["--resume", "-dataset", "synthetic",
+                        "-models_root", cfg.models_root,
+                        "-model_name", cfg.model_name], device="cpu")
+    assert state.decoder.fc_class.out_features == 3
+    headers = [int(line.split()[1]) for line in
+               capsys.readouterr().out.splitlines()
+               if line.startswith("Epoch") and ":" not in line]
+    assert headers == [start + e for e in range(3)]
 
 
 def test_decoder_pt_reads_back_into_jax(runs, tmp_path):

@@ -163,6 +163,7 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
         "import rsis_tpu_torch.ops.clstm_step, rsis_tpu_torch.cli.eval\n"
         "import rsis_tpu_torch.cli.eval_cityscapes\n"
         "import rsis_tpu_torch.cli.eval_leaves, rsis_tpu_torch.cli.predict\n"
+        "import rsis_tpu_torch.cli.soak_eval\n"
         "import rsis_tpu_torch.evals.visualize\n"
         "import rsis_tpu_torch.data.tools.pascal_precompute\n"
         "import rsis_tpu_torch.cli.verify_parity\n"
@@ -189,7 +190,7 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["eval", "eval_cityscapes", "eval_leaves",
-                                 "predict"])
+                                 "predict", "soak_eval"])
 def test_eval_entry_points_without_device_need_cuda(cli, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default is usable")

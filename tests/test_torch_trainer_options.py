@@ -35,7 +35,7 @@ from rsis_tpu.config import Config as JaxConfig
 from rsis_tpu.models import rsis as jax_rsis
 from rsis_tpu.train import loop as jax_loop
 from rsis_tpu_torch.config import Config
-from rsis_tpu_torch.models.rsis import build_models
+from rsis_tpu_torch.models.rsis import init_weights
 from rsis_tpu_torch.models.weights import from_jax_variables
 from rsis_tpu_torch.train import loop as port_loop
 from rsis_tpu_torch.train.checkpoint import load_weights, model_dir
@@ -164,10 +164,9 @@ def test_transfer_swaps_the_class_head(runs, capsys):
     assert list(enc) == list(enc_src) and list(dec) == list(dec_src)
     for k, v in enc_src.items():
         torch.testing.assert_close(enc[k], v, rtol=0, atol=0, msg=k)
-    torch.manual_seed(dst.seed)
-    _, fresh = build_models(dst)
+    _, fresh = init_weights(dst, torch.Generator().manual_seed(dst.seed))
     for k, v in dec_src.items():
-        want = fresh.state_dict()[k] if k.startswith("fc_class.") else v
+        want = fresh[k] if k.startswith("fc_class.") else v
         torch.testing.assert_close(dec[k], want, rtol=0, atol=0, msg=k)
     assert dec["fc_class.weight"].shape[0] == 5
     assert state.step == 0 and state.enc_opt["count"] == 0
@@ -185,9 +184,8 @@ def test_transfer_swaps_the_class_head(runs, capsys):
     fresh_start = dst.replace(transfer_from="no_such_model")
     state, _, _ = port_loop.Trainer(fresh_start, device="cpu") \
         ._initial_state(fresh_start)
-    torch.manual_seed(dst.seed)
-    enc_f, dec_f = build_models(dst)
+    enc_f, dec_f = init_weights(dst, torch.Generator().manual_seed(dst.seed))
     for got, want in ((state.encoder, enc_f), (state.decoder, dec_f)):
-        for k, v in want.state_dict().items():
+        for k, v in want.items():
             torch.testing.assert_close(got.state_dict()[k], v, rtol=0,
                                        atol=0, msg=k)
