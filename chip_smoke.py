@@ -42,7 +42,7 @@ Phases, each fatal on failure:
      T times a forward, K1 never, the outputs held against the plain
      path, images per second;
   3c. the evaluation entry points in process on the card:
-     ``cli.eval_cityscapes`` (2 images at 1024x2048, input 512x1024,
+     ``cli.eval_cityscapes`` (1 image at 1024x2048, input 512x1024,
      T=20, built-in AP), ``cli.eval_leaves`` (CVPPP A1), ``cli.eval``
      (Pascal, COCO stats) and ``cli.predict``, on trees and full-width
      checkpoints (concat and mul) written under build/ from --seed: their
@@ -111,6 +111,26 @@ Phases, each fatal on failure:
      most 0.9 x the first epoch's, the trained SBD above the fresh
      weights'; ``--soak full`` runs TRAINRUN.md's three stages
      (max_epoch 24, class and stop losses left to the patience rule);
+  4f. the repository's nine run recipes (``scripts/*.sh``) through
+     ``rsis_tpu_torch.recipes`` on trees written from --seed at each
+     dataset's native size (Cityscapes 1024x2048: 128 train, 32 val and
+     1 test frames; CVPPP A1 530x500: 128 plants and 33 test images;
+     Pascal VOC 375x500: 168 train, 28 val and 28 test images): each
+     train recipe at its own batch, T, widths, image size, augmentation,
+     curriculum and loss weights, only its data directory, -models_root,
+     -seed, -max_epoch 2 and (Cityscapes) -finetune_after 1 overridden:
+     its epochs' finite losses, a checkpoint, the encoder switch where
+     scheduled and K1-K6 launched (K7 too under --augment, never without
+     it); one step on its first batch through the kernels and the plain
+     path (fp32: loss 1e-4 relative, gradients 1e-3 of their max); then
+     its dataset's eval and display recipes on that checkpoint (the
+     default test split): their outputs, one overlay for each image the
+     evaluator renders, K1 and K2 launched, and one eval batch through the
+     kernels and the plain path (FP32_TOL for the recipes' fp32
+     checkpoints); printed: the loop's ms per train step over the steps
+     that waited for the loader, the loader's ms per batch alone (its
+     first 2), the step's ms (CUDA events) and a profiled step's device
+     busy and idle share, eval s per image;
   5. timings after warm-up: encoder, decode step, images per second and
      train ms per step from CUDA events or host clocks around whole,
      synchronised calls; each kernel's device time (CUDA-graph replay)
@@ -382,6 +402,30 @@ def step_grad_verdict(row: dict, limit: float) -> tuple:
         return row["kp"] <= limit, row["kp"], limit, "plain"
     bound = row["pf"] + limit
     return row["kf"] <= bound, row["kf"], bound, "fp32"
+
+
+def check_grads(tag, rows, limits):
+    """Every gradient tensor (step_grad_rows) by step_grad_verdict at
+    limits[group]; returns each group's worst held distance over its
+    limit and its tensor."""
+    worst = dict.fromkeys(limits, (0.0, None))
+    held = dict.fromkeys(limits, 0)
+    for k, row in rows.items():
+        ok, dist, lim, against = step_grad_verdict(
+            row, limits[row["group"]])
+        worst[row["group"]] = max(worst[row["group"]], (dist / lim, k))
+        held[row["group"]] += against == "fp32"
+        if not ok:
+            raise SystemExit(
+                f"train step {tag} gradient {k}: {dist:.3f} units "
+                f"against {against} (limit {lim:.3f}; kernel-plain "
+                f"{row['kp']:.3f}, plain-fp32 {row['pf']}, "
+                f"kernel-fp32 {row['kf']})")
+    log(f"  train step {tag} gradients: {len(rows)} tensors ok; worst "
+        f"share of its limit: " + ", ".join(
+            f"{g} {w:.3f} at {at} ({held[g]} held against fp32)"
+            for g, (w, at) in worst.items()))
+    return worst
 
 
 def cell_inputs(geom, b, dtype, gen):
@@ -1128,29 +1172,6 @@ def train_phase(args, out_dir) -> dict:
             rng=cuda_generator(args.seed + 1))
         return total.item(), grads
 
-    def check_grads(tag, rows, limits):
-        """Every gradient tensor (step_grad_rows) by step_grad_verdict at
-        limits[group]; returns each group's worst held distance over its
-        limit and its tensor."""
-        worst = dict.fromkeys(limits, (0.0, None))
-        held = dict.fromkeys(limits, 0)
-        for k, row in rows.items():
-            ok, dist, lim, against = step_grad_verdict(
-                row, limits[row["group"]])
-            worst[row["group"]] = max(worst[row["group"]], (dist / lim, k))
-            held[row["group"]] += against == "fp32"
-            if not ok:
-                raise SystemExit(
-                    f"train step {tag} gradient {k}: {dist:.3f} units "
-                    f"against {against} (limit {lim:.3f}; kernel-plain "
-                    f"{row['kp']:.3f}, plain-fp32 {row['pf']}, "
-                    f"kernel-fp32 {row['kf']})")
-        log(f"  train step {tag} gradients: {len(rows)} tensors ok; worst "
-            f"share of its limit: " + ", ".join(
-                f"{g} {w:.3f} at {at} ({held[g]} held against fp32)"
-                for g, (w, at) in worst.items()))
-        return worst
-
     # bf16: the forwards agree to a few bf16 ulps of each mask logit, and
     # the loss is an fp32 mean over all of them, so it moves far less than
     # one bf16 ulp of itself (2^-8..2^-7 relative). The gradients: both
@@ -1468,7 +1489,8 @@ def options_phase(args, models, card) -> dict:
 
         # 3. transfer onto CVPPP leaves
         t0 = time.perf_counter()
-        leaves = write_leaves(root, np.random.default_rng(args.seed), n=104)
+        leaves, _ = write_leaves(root, np.random.default_rng(args.seed),
+                                 n=104)
         walls["leaves_tree_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         run_captured(train_main, common + [
@@ -1835,95 +1857,171 @@ def mul_forward_phase(args, xs) -> dict:
             "images_per_s": img_s, "profile": profile}
 
 
-def write_cityscapes(root, rng, n=2, size=(1024, 2048)):
-    """gtFine val of one city at the dataset's native size: random images,
-    instance ids of persons (24xxx), cars (26xxx), a caravan (29xxx, which
-    the catalog drops) and a person crowd region (24)."""
+def blob_scene(seed, size, blobs):
+    """A smooth uint8 (H, W, 3) image (a vertical gradient, each blob a
+    flat colour drawn from ``seed``: PNG writes it fast) and an int32
+    label map, painting the ellipses ``blobs`` [(label, cy, cx, ry, rx)]
+    in order, each within its bounding box."""
     import numpy as np
-    from PIL import Image
+    rng = np.random.default_rng(seed)
     h, w = size
-    img_dir = os.path.join(root, "cs", "leftImg8bit", "val", "cityA")
-    gt_dir = os.path.join(root, "cs", "gtFine", "val", "cityA")
-    os.makedirs(img_dir)
-    os.makedirs(gt_dir)
-    yy, xx = np.ogrid[:h, :w]
-    for i in range(n):
-        ids = np.zeros((h, w), np.int32)
-        for iid in (24000, 24001, 26000, 26001, 29000, 24):
-            cy, cx = rng.integers(h // 10, h - h // 10), rng.integers(
-                w // 10, w - w // 10)
-            ry, rx = rng.integers(h // 25, h // 5, 2)
-            ids[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = iid
-        name = f"cityA_{i:06d}_000019"
-        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
-                        ).save(os.path.join(img_dir,
-                                            f"{name}_leftImg8bit.png"))
-        Image.fromarray(ids.astype(np.uint16)).save(
-            os.path.join(gt_dir, f"{name}_gtFine_instanceIds.png"))
+    img = np.empty((h, w, 3), np.uint8)
+    lo, hi = sorted(rng.integers(40, 200, 2))
+    img[:] = np.linspace(lo, hi + 1, h).astype(np.uint8)[:, None, None]
+    labels = np.zeros((h, w), np.int32)
+    for label, cy, cx, ry, rx in blobs:
+        y0, y1 = max(cy - ry, 0), min(cy + ry + 1, h)
+        x0, x1 = max(cx - rx, 0), min(cx + rx + 1, w)
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+        labels[y0:y1, x0:x1][inside] = label
+        img[y0:y1, x0:x1][inside] = rng.integers(0, 256, 3)
+    return img, labels
+
+
+def random_blob(rng, size, label, frac=(25, 5)):
+    """(label, cy, cx, ry, rx) of an ellipse inside ``size``, its radii
+    between 1/frac[0] and 1/frac[1] of each side."""
+    h, w = size
+    return (label, int(rng.integers(h // 10, h - h // 10)),
+            int(rng.integers(w // 10, w - w // 10)),
+            int(rng.integers(h // frac[0], h // frac[1])),
+            int(rng.integers(w // frac[0], w // frac[1])))
+
+
+def write_images(jobs, threads: int = 8) -> None:
+    """Run ``jobs`` (callables returning [(uint8/uint16 array, path)]) on
+    a few threads and write each array as an image file (numpy's and
+    Pillow's encoders run without the interpreter lock); PNGs at zlib
+    level 1."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+
+    def run(job):
+        for arr, path in job():
+            kw = {"compress_level": 1} if path.endswith(".png") else {}
+            Image.fromarray(arr).save(path, **kw)
+
+    with ThreadPoolExecutor(threads) as ex:
+        list(ex.map(run, jobs))
+
+
+def scene_job(rng, size, blobs, paths, label_images):
+    """A write_images job: blob_scene on a seed drawn from ``rng`` now,
+    its image to paths[0] and label_images(its label map) to the other
+    paths."""
+    seed = int(rng.integers(2 ** 63))
+
+    def job():
+        img, labels = blob_scene(seed, size, blobs)
+        images = [img] + (label_images(labels) if paths[1:] else [])
+        return list(zip(images, paths))
+    return job
+
+
+def write_cityscapes(root, rng, splits=(("val", 2),), size=(1024, 2048)):
+    """gtFine splits of one city at the dataset's native size: each frame
+    4-8 instances of random classes among the 8 (label id x 1000 + k), a
+    caravan (29xxx, which the catalog drops) and a person crowd region
+    (24)."""
+    import numpy as np
+    from rsis_tpu_torch.data.catalogs import CITYSCAPES_LABEL_IDS
+    jobs = []
+    for split, n in splits:
+        img_dir = os.path.join(root, "cs", "leftImg8bit", split, "cityA")
+        gt_dir = os.path.join(root, "cs", "gtFine", split, "cityA")
+        os.makedirs(img_dir)
+        os.makedirs(gt_dir)
+        for i in range(n):
+            ids = [int(rng.choice(CITYSCAPES_LABEL_IDS)) * 1000 + k
+                   for k in range(int(rng.integers(4, 9)))]
+            name = f"cityA_{i:06d}_000019"
+            jobs.append(scene_job(
+                rng, size, [random_blob(rng, size, iid)
+                            for iid in ids + [29000, 24]],
+                [os.path.join(img_dir, f"{name}_leftImg8bit.png"),
+                 os.path.join(gt_dir, f"{name}_gtFine_instanceIds.png")],
+                lambda lab: [lab.astype(np.uint16)]))
+    write_images(jobs)
     return os.path.join(root, "cs")
 
 
-def write_leaves(root, rng, n=3, size=(530, 500)):
-    """CVPPP A1 plants at the dataset's image size, 4-8 leaves each."""
+def write_leaves(root, rng, n=3, size=(530, 500), test=0):
+    """CVPPP A1 plants at the dataset's image size, 4-12 leaves each (the
+    catalog takes the first 96 for train, the rest for val), and ``test``
+    plants without labels in a directory of their own (the contest's
+    test split). Returns the two directories."""
     import numpy as np
-    from PIL import Image
-    h, w = size
-    d = os.path.join(root, "A1")
-    os.makedirs(d)
-    yy, xx = np.ogrid[:h, :w]
-    for i in range(n):
-        label = np.zeros((h, w), np.uint8)
-        for k in range(1, int(rng.integers(4, 9))):
-            cy, cx = rng.integers(h // 8, h - h // 8), rng.integers(
-                w // 8, w - w // 8)
-            r = rng.integers(h // 25, h // 8)
-            label[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = k
-        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
-                        ).save(os.path.join(d, f"plant{i:03d}_rgb.png"))
-        Image.fromarray(label).save(os.path.join(d, f"plant{i:03d}_label.png"))
-    return d
+    jobs = []
+    dirs = [os.path.join(root, "A1"), os.path.join(root, "A1_test")]
+    for d, count, labelled in ((dirs[0], n, True), (dirs[1], test, False)):
+        os.makedirs(d)
+        for i in range(count):
+            paths = [os.path.join(d, f"plant{i:03d}_rgb.png")]
+            if labelled:
+                paths.append(os.path.join(d, f"plant{i:03d}_label.png"))
+            jobs.append(scene_job(
+                rng, size, [random_blob(rng, size, k, (20, 8))
+                            for k in range(1, int(rng.integers(5, 13)))],
+                paths, lambda lab: [lab.astype(np.uint8)]))
+    write_images(jobs)
+    return dirs
 
 
-def write_pascal(root, rng, n=2, size=(375, 500)):
-    """VOC layout at a typical VOC image size: a person and a car as
-    palette PNGs with a 255 ignore border, and the val list."""
+def write_pascal(root, rng, splits=(("val", 2),), size=(375, 500)):
+    """VOC layout at a typical VOC image size: 1-3 objects of random
+    classes an image as palette PNGs with a 255 ignore border, and a list
+    of each split (image names numbered across the splits)."""
     import numpy as np
-    from PIL import Image
     from rsis_tpu_torch.data.tools.palettes import pascal_palette
-    h, w = size
     d = os.path.join(root, "voc")
     for sub in ("JPEGImages", "SegmentationClass", "SegmentationObject",
                 "ImageSets/Segmentation"):
         os.makedirs(os.path.join(d, sub))
     color = {v: k for k, v in pascal_palette().items()}
-    yy, xx = np.ogrid[:h, :w]
-    names = []
-    for i in range(n):
-        name = f"2007_{i:06d}"
-        names.append(name)
-        seg = np.zeros((h, w, 3), np.uint8)
-        obj = np.zeros((h, w, 3), np.uint8)
-        for k, cls in enumerate((15, 7), start=1):
-            cy, cx = rng.integers(h // 5, h - h // 5), rng.integers(
-                w // 5, w - w // 5)
-            r = rng.integers(h // 12, h // 5)
-            blob = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
-            seg[blob], obj[blob] = color[cls], color[k]
-        seg[:3], obj[:3] = color[255], color[255]
-        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
-                        ).save(os.path.join(d, "JPEGImages", f"{name}.jpg"))
-        Image.fromarray(seg).save(
-            os.path.join(d, "SegmentationClass", f"{name}.png"))
-        Image.fromarray(obj).save(
-            os.path.join(d, "SegmentationObject", f"{name}.png"))
-    with open(os.path.join(d, "ImageSets/Segmentation/val.txt"), "w") as fp:
-        fp.write("\n".join(names) + "\n")
+
+    def palette_pngs(classes):
+        """The object map -> the class and object palette images."""
+        def to_rgb(obj):
+            seg = np.zeros(obj.shape, np.int32)
+            for k, cls in enumerate(classes, start=1):
+                seg[obj == k] = cls
+            seg[:3], obj[:3] = 255, 255
+            out = []
+            for lab in (seg, obj):
+                rgb = np.zeros(lab.shape + (3,), np.uint8)
+                for v in np.unique(lab):
+                    rgb[lab == v] = color[int(v)]
+                out.append(rgb)
+            return out
+        return to_rgb
+
+    jobs = []
+    i = 0
+    for split, n in splits:
+        names = []
+        for _ in range(n):
+            name = f"2007_{i:06d}"
+            names.append(name)
+            i += 1
+            classes = rng.integers(1, 21, int(rng.integers(1, 4)))
+            jobs.append(scene_job(
+                rng, size, [random_blob(rng, size, k, (12, 5))
+                            for k in range(1, len(classes) + 1)],
+                [os.path.join(d, "JPEGImages", f"{name}.jpg"),
+                 os.path.join(d, "SegmentationClass", f"{name}.png"),
+                 os.path.join(d, "SegmentationObject", f"{name}.png")],
+                palette_pngs(classes)))
+        with open(os.path.join(d, f"ImageSets/Segmentation/{split}.txt"),
+                  "w") as fp:
+            fp.write("\n".join(names) + "\n")
+    write_images(jobs)
     return d
 
 
 def eval_phase(args, out_dir, models) -> dict:
     """Phase 3c: the evaluation entry points in process on the card. Under
-    build/, from --seed: a Cityscapes val tree (2 images, 1024x2048), a
+    build/, from --seed: a Cityscapes val tree (1 image, 1024x2048), a
     CVPPP A1 tree (3 plants) and a Pascal tree (2 images, precomputed by
     the port's pascal_precompute); two full-width checkpoints written by
     the port's train/checkpoint.py (random weights, bf16) into ``models``
@@ -1952,8 +2050,8 @@ def eval_phase(args, out_dir, models) -> dict:
     rng = np.random.default_rng(args.seed)
     try:
         t0 = time.perf_counter()
-        cs_dir = write_cityscapes(root, rng)
-        leaves_dir = write_leaves(root, rng)
+        cs_dir = write_cityscapes(root, rng, (("val", 1),))
+        leaves_dir, _ = write_leaves(root, rng)
         voc_dir = write_pascal(root, rng)
         precompute(voc_dir, "val")
         for name, skip, n_cls in (("cs", "concat", 9), ("voc", "mul", 21)):
@@ -1970,10 +2068,10 @@ def eval_phase(args, out_dir, models) -> dict:
                   str(args.seed)]
         pred_dir = os.path.join(root, "predictions")
         runs = [
-            ("eval_cityscapes", eval_cityscapes.main, "concat", 20, 2,
+            ("eval_cityscapes", eval_cityscapes.main, "concat", 20, 1,
              ["-model_name", "cs", "-dataset", "cityscapes",
               "-cityscapes_dir", cs_dir, "-eval_split", "val", "-imsize",
-              "512", "-maxseqlen", "20", "-batch_size", "2"]),
+              "512", "-maxseqlen", "20", "-batch_size", "1"]),
             ("eval_leaves", eval_leaves.main, "concat", 20, 3,
              ["-model_name", "cs", "-dataset", "leaves", "-leaves_dir",
               leaves_dir, "-eval_split", "train", "-imsize", "512",
@@ -2029,7 +2127,7 @@ def eval_phase(args, out_dir, models) -> dict:
         pred = results["predict"]["result"]["written"]
         files = (cs["written"] + leaves["written"] + pred["png"]
                  + [pred["json"]])
-        if (len(cs["written"]) != 2 or len(leaves["written"]) != 3
+        if (len(cs["written"]) != 1 or len(leaves["written"]) != 3
                 or len(pred["png"]) != 2
                 or not all(os.path.exists(f) for f in files)):
             raise SystemExit(f"missing evaluation outputs: {files}")
@@ -2778,6 +2876,394 @@ def soak_phase(args) -> dict:
     return out
 
 
+# phase 4f: the nine run recipes of scripts/*.sh through
+# rsis_tpu_torch.recipes on trees at each dataset's native size (smooth
+# blob images): each train recipe with only the data directory,
+# -models_root, -seed, -max_epoch and (Cityscapes, so that the encoder
+# switch fires inside the phase) -finetune_after overridden, then that
+# dataset's eval and display recipes on its checkpoint, which read the
+# default split ("test"). Frames a split: a train split holds enough
+# batches of its recipe's B that some steps wait for the loader (the
+# trainer holds depth + 1 = 3 batches before its first step, so only
+# steps 1 .. n - 3 of an epoch of n batches draw a new one): Pascal 6
+# batches, Cityscapes 4 (the real split has 2975 frames; its loader
+# takes about 3.5 s a batch on the card's host, so more would not fit
+# the phase); each val split holds one batch of its train recipe's B
+# (the loop drops a short last batch); Cityscapes' test split 1 frame
+# (its exporter writes 160 native-size PNGs a frame, about 7 s on the
+# card's host), Pascal's one batch of its eval recipes' B; CVPPP A1 has
+# its real 128 plants (96 train, 32 val: 4 batches) and 33 test images
+RECIPE_SPLITS = {"cityscapes": (("train", 128), ("val", 32), ("test", 1)),
+                 "leaves": (128, 33),
+                 "pascal": (("train", 168), ("val", 28), ("test", 28))}
+RECIPE_EPOCHS = 2
+RECIPE_OVERRIDES = {"cityscapes": ["-finetune_after", "1"]}
+RECIPE_STEP_ITERS = 3
+
+
+def run_quiet(fn):
+    """fn() with its standard output captured: (result, text); the text's
+    tail is logged if fn raises."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+    except BaseException:
+        for line in buf.getvalue().splitlines()[-40:]:
+            log(f"  | {line}")
+        raise
+    return res, buf.getvalue()
+
+
+def recipe_train(name: str, extra: list, seed: int) -> dict:
+    """Train recipe ``name`` with ``extra`` flags: its epochs, losses,
+    checkpoint and kernel launches checked; the loop's ms per train step
+    (over the steps that waited for a new batch), the loader's ms per
+    batch alone over its first 2, and the step's ms on the run's first
+    batch (CUDA events; a profiled call's device busy and idle share); one
+    step on that batch through the kernels and through the plain path."""
+    import inspect
+    import numpy as np
+    from rsis_tpu_torch import recipes
+    from rsis_tpu_torch.config import Config, config_from_args
+    from rsis_tpu_torch.train import step as ts
+    from rsis_tpu_torch.train.checkpoint import model_dir
+    from rsis_tpu_torch.train.loop import Trainer, init_dataloaders
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, text = run_quiet(lambda: recipes.run(name, extra))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    d = model_dir(config_from_args(recipes.argv(name, extra)))
+    cfg = Config.load(os.path.join(d, "args.json"))
+    if not cfg.log_term:
+        # the recipe logs to the model directory (train_pascal)
+        with open(os.path.join(d, cfg.log_file)) as fp:
+            text = fp.read()
+    ev = soak_events(text)
+    with open(os.path.join(d, "metrics.jsonl")) as fp:
+        records = [json.loads(ln) for ln in fp]
+    losses = [[r[k] for k in ("total", "iou", "stop", "class")]
+              for r in records]
+    faults = []
+    if ev["headers"] != list(range(RECIPE_EPOCHS)) or len(
+            ev["val_totals"]) != RECIPE_EPOCHS:
+        faults.append(f"epochs {ev['headers']}, val totals "
+                      f"{ev['val_totals']}")
+    if not losses or not np.isfinite(losses).all():
+        faults.append("a batch's losses are not finite")
+    missing = [f for f in ("encoder.pt", "decoder.pt", "optim.pt",
+                           "args.json") if not os.path.exists(
+                               os.path.join(d, f))]
+    if not ev["saves"] or missing:
+        faults.append(f"no checkpoint saved (missing {missing})")
+    if cfg.finetune_after > 0:
+        # the switch fires at the scheduled epoch, inside the run
+        lines = text.splitlines()
+        at = [i for i, ln in enumerate(lines)
+              if ln == "Starting to update encoder"]
+        start = lines.index(f"Epoch {cfg.finetune_after}") if \
+            f"Epoch {cfg.finetune_after}" in lines else None
+        if not at or start is None or at[0] < start:
+            faults.append("no \"Starting to update encoder\" at epoch "
+                          f"{cfg.finetune_after}")
+    # K7 warps the batches of --augment; a recipe without it never does
+    idle = {k for k, n in launches.items() if n == 0}
+    if idle != (set() if cfg.augment else {"warp_by_coefficients"}):
+        faults.append(f"launches {launches} (augment {cfg.augment})")
+    if faults:
+        for line in text.splitlines()[-30:]:
+            log(f"  | {line}")
+        raise SystemExit(f"recipe {name}: " + "; ".join(faults))
+
+    # the loader alone over the train split's first 2 batches (its own
+    # worker threads, no step running); its first is the run's first
+    loader = init_dataloaders(cfg)["train"]
+    n_batches = len(loader)
+    batches = iter(loader)
+    t0 = time.perf_counter()
+    first = [next(batches) for _ in range(2)][0]
+    loader_ms = 1e3 * (time.perf_counter() - t0) / 2
+    batches.close()
+    # Trainer._device_prefetch pulls depth + 1 batches before step 0 and
+    # batch i + depth before step i: the record-to-record gap ending at
+    # step i waits for the loader only while batch i + depth exists
+    depth = inspect.signature(Trainer._device_prefetch).parameters[
+        "depth"].default
+    gaps = [r2["t"] - r1["t"] for r1, r2 in zip(records, records[1:])
+            if r1["split"] == r2["split"] == "train"
+            and r1["epoch"] == r2["epoch"]
+            and r2["batch"] + depth < n_batches]
+    loop_ms = 1e3 * sum(gaps) / len(gaps) if gaps else None
+    # the step on the run's first batch at the run's T and flags
+    T = (min(cfg.maxseqlen, cfg.limit_seqlen_to)
+         if cfg.curriculum_learning and cfg.limit_seqlen_to > 0
+         else cfg.maxseqlen)
+    batch = [torch.from_numpy(a).cuda() for a in first]
+    flags = ts.StepFlags.from_config(cfg)
+    step, _ = ts.make_train_step(cfg, T=T)
+    gen = cuda_generator(seed)
+    step_ms = cuda_ms(lambda: step(state, batch, flags, gen),
+                      iters=RECIPE_STEP_ITERS, warmup=1)
+    # the events span the step's host waits too; one profiled call gives
+    # the device's busy ms and its idle share of that call's wall time
+    profiled = profile_call(lambda: step(state, batch, flags, gen), None,
+                            name)
+    # the same step through the kernels and the plain path (fp32, the
+    # recipes' dtype: loss 1e-4 relative, gradients 1e-3 of their max)
+    if cfg.compute_dtype != "float32":
+        raise SystemExit(f"recipe {name}: {cfg.compute_dtype} has no "
+                         f"limits here")
+
+    def loss_grads(plain):
+        total, _, grads = ts.loss_and_grads(cfg, state, batch, flags, T,
+                                            plain=plain,
+                                            rng=cuda_generator(seed + 1))
+        return total.item(), grads
+
+    got, g_k = loss_grads(False)
+    want, g_p = loss_grads(True)
+    hw = tuple(batch[0].shape[1:3])
+    tag = f"{name} B={cfg.batch_size} {hw[0]}x{hw[1]} T={T} fp32"
+    loss_rel = abs(got - want) / abs(want)
+    check(f"recipe step {tag} loss vs plain path (relative)", loss_rel,
+          1e-4)
+    worst = check_grads(tag, step_grad_rows(g_k, g_p, ulp=1e-3),
+                        {"backbone": 1, "decoder": 1})
+    del state, g_k, g_p
+    torch.cuda.empty_cache()
+    loop = (f"{loop_ms:.3f} ms per train step over the {len(gaps)} "
+            f"steps that waited for the loader" if gaps else
+            "not measured (no step waited for the loader)")
+    log(f"recipe {name}: {RECIPE_EPOCHS} epochs in {wall:.2f} s "
+        f"(B={cfg.batch_size}, {hw[0]}x{hw[1]}, T={T}, {cfg.compute_dtype}"
+        f", augment {cfg.augment}, {n_batches} batches an epoch); val "
+        f"totals {ev['val_totals']}; loop {loop}; the loader alone "
+        f"{loader_ms:.3f} ms per batch (2 batches, {cfg.num_workers} "
+        f"workers); the step on the first batch {step_ms:.3f} ms (CUDA "
+        f"events, {RECIPE_STEP_ITERS} steps); one profiled step: device "
+        f"busy {profiled['busy_ms']:.3f} ms of {profiled['wall_ms']:.3f} "
+        f"ms wall (idle share {profiled['idle_share']:.3f}); launches "
+        f"{launches}")
+    return {"wall_s": wall, "batch": cfg.batch_size, "hw": list(hw),
+            "T": T, "dtype": cfg.compute_dtype, "augment": cfg.augment,
+            "val_totals": ev["val_totals"], "launches": launches,
+            "batches_per_epoch": n_batches,
+            "loop_ms_per_train_step": loop_ms, "loop_gaps": len(gaps),
+            "loader_ms_per_batch": loader_ms, "step_ms": step_ms,
+            "profiled_step_busy_ms": profiled["busy_ms"],
+            "profiled_step_wall_ms": profiled["wall_ms"],
+            "profiled_step_idle_share": profiled["idle_share"],
+            "loss_rel_err": loss_rel, "grad_worst_share": worst}
+
+
+def recipe_eval(name: str, extra: list) -> dict:
+    """Eval or display recipe ``name`` with ``extra`` flags: its outputs
+    (the COCO JSON and stats, the Cityscapes instance PNGs and AP, the
+    CVPPP label images; one overlay for each image the evaluator renders)
+    and K1's and K2's launches checked; wall s per image and the
+    forward's share."""
+    import numpy as np
+    from rsis_tpu_torch import recipes
+    from rsis_tpu_torch.config import config_from_args
+    from rsis_tpu_torch.data.catalogs import get_dataset
+    from rsis_tpu_torch.evals.evaluator import Evaluator
+    from rsis_tpu_torch.train.checkpoint import model_dir
+
+    cfg = config_from_args(recipes.argv(name, extra))
+    n_img = len(get_dataset(cfg, cfg.eval_split))
+    counters = forward_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    shown = []
+    render = Evaluator._render_overlay
+
+    def counted(self, sample_idx, anns):
+        shown.append(os.path.basename(str(sample_idx)).split(".")[0])
+        return render(self, sample_idx, anns)
+
+    Evaluator._render_overlay = counted
+    t0 = time.perf_counter()
+    try:
+        res, _ = run_quiet(lambda: recipes.run(name, extra))
+    finally:
+        Evaluator._render_overlay = render
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    cli = recipes.RECIPES[name][0]
+    faults = []
+    if res["images"] != n_img:
+        faults.append(f"{res['images']} images of {n_img}")
+    if not (launches["fused_cell_rowmajor"]
+            and launches["mask_head_fused_kernel"]):
+        faults.append(f"launches {launches}")
+    written = res.get("written", [])
+    if cli in ("eval_cityscapes", "eval_leaves") and (
+            len(written) != n_img
+            or not all(os.path.exists(f) for f in written)):
+        faults.append(f"wrote {len(written)} files of {n_img}")
+    if cli == "eval_cityscapes":
+        for txt in written:
+            with open(txt) as fp:
+                lines = fp.read().split("\n")[:-1]
+            if len(lines) != cfg.maxseqlen * 8 or not all(os.path.exists(
+                    os.path.join(os.path.dirname(txt), ln.split()[0]))
+                    for ln in lines):
+                faults.append(f"{txt} lists {len(lines)} masks, or one is "
+                              f"missing")
+        if res["ap"] is None or not np.isfinite(
+                [res["ap"]["allAp"], res["ap"]["allAp50%"]]).all():
+            faults.append(f"AP {res['ap']}")
+    if cli == "eval_leaves" and res["scores"] is not None and not \
+            np.isfinite([res["scores"]["SBD"],
+                         res["scores"]["absDiC"]]).all():
+        faults.append(f"scores {res['scores']}")
+    if cli == "eval" and cfg.dataset == "pascal":
+        coco_json = os.path.join(cfg.pascal_dir,
+                                 f"pascal_{cfg.eval_split}.json")
+        if res["stats"] is None or len(res["stats"]) != 12 or not \
+                np.isfinite(res["stats"]).all() or not os.path.exists(
+                    coco_json):
+            faults.append(f"COCO stats {res['stats']}, {coco_json}")
+    overlays = None
+    if cfg.display:
+        figs = os.path.join(model_dir(cfg), f"{cfg.model_name}_figs_"
+                            f"{cfg.eval_split}")
+        files = sorted(os.listdir(figs)) if os.path.isdir(figs) else []
+        overlays = len(files)
+        if len(set(shown)) != len(shown) or files != sorted(
+                f"{s}.png" for s in shown):
+            faults.append(f"{len(files)} overlays for the {len(shown)} "
+                          f"images with a prediction at or above class_th "
+                          f"{cfg.class_th}")
+    if faults:
+        raise SystemExit(f"recipe {name}: " + "; ".join(faults))
+    share = res["forward_s"] / wall
+    log(f"recipe {name}: {n_img} images ({cfg.eval_split}) in {wall:.2f} s"
+        f" = {wall / n_img:.3f} s per image, the forward {share:.3f} of "
+        f"it; launches {launches}"
+        + (f"; {overlays} overlays (class_th {cfg.class_th})"
+           if cfg.display else ""))
+    return {"wall_s": wall, "images": n_img, "s_per_image": wall / n_img,
+            "forward_s": res["forward_s"], "forward_share": share,
+            "launches": launches, "overlays": overlays}
+
+
+def recipe_forward_check(name: str, extra: list) -> float:
+    """The first batch of eval recipe ``name``'s split at its geometry
+    through make_forward (the kernels) and the plain path on its
+    checkpoint: within FP32_TOL for an fp32 checkpoint, 8 bf16 ulps of
+    [0, 1] for a bf16 one."""
+    from rsis_tpu_torch import recipes
+    from rsis_tpu_torch.cli.eval import load_eval_variables
+    from rsis_tpu_torch.config import config_from_args
+    from rsis_tpu_torch.data.base import normalize_image
+    from rsis_tpu_torch.data.catalogs import get_dataset
+    from rsis_tpu_torch.data.pipeline import DataLoader
+    from rsis_tpu_torch.evals.forward import make_forward
+    from rsis_tpu_torch.models.rsis import build_models, compute_dtype
+    from rsis_tpu_torch.models.rsis import forward as plain_forward
+
+    cfg, weights = load_eval_variables(config_from_args(
+        recipes.argv(name, extra)))
+    imgs, _ = next(iter(DataLoader(get_dataset(cfg, cfg.eval_split),
+                                   batch_size=cfg.batch_size,
+                                   shuffle=False, drop_last=False,
+                                   num_workers=1)))
+    x = torch.from_numpy(normalize_image(imgs)).cuda()
+    T = cfg.maxseqlen
+    with torch.inference_mode():
+        got = make_forward(cfg, T=T)(weights, x)
+        enc, dec = build_models(cfg)
+        enc.load_state_dict(weights[0])
+        dec.load_state_dict(weights[1])
+        enc = enc.to("cuda", compute_dtype(cfg))
+        want = plain_forward(cfg, enc, dec.to("cuda"),
+                             x.permute(0, 3, 1, 2).contiguous(), T=T,
+                             plain=True)
+    tol = FP32_TOL if cfg.compute_dtype == "float32" else 8 * BF16_ULP
+    worst = 0.0
+    for nm, g, w in zip(("masks", "class_probs", "stops"), got, want):
+        err = max_err(g, w)
+        worst = max(worst, err)
+        check(f"recipe {name} forward B={x.shape[0]} {x.shape[1]}x"
+              f"{x.shape[2]} T={T} {cfg.compute_dtype} vs plain path, {nm}",
+              err, tol)
+    return worst
+
+
+def recipes_phase(args) -> dict:
+    """Phase 4f: the repository's nine run recipes (``scripts/*.sh``)
+    through ``rsis_tpu_torch.recipes.run`` on the card, on trees written
+    under build/ from --seed at each dataset's native size: for
+    Cityscapes, CVPPP and Pascal in turn the train recipe at its own
+    batch, T, widths, image size, augmentation, curriculum and loss
+    weights for RECIPE_EPOCHS epochs (recipe_train), then its eval and
+    display recipes on the checkpoint (recipe_eval) and one eval batch
+    through the kernels and the plain path (recipe_forward_check). Its
+    budget is 150 s of the default run's 470 s."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from rsis_tpu_torch import recipes
+    from rsis_tpu_torch.data.tools.pascal_precompute import run as precompute
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipes_",
+                            dir=os.path.join(here, "build"))
+    rng = np.random.default_rng(args.seed)
+    out = {"train": {}, "eval": {}, "forward_err": {}}
+    try:
+        t0 = time.perf_counter()
+        cs = write_cityscapes(root, rng, RECIPE_SPLITS["cityscapes"])
+        n, test = RECIPE_SPLITS["leaves"]
+        a1, a1_test = write_leaves(root, rng, n=n, test=test)
+        voc = write_pascal(root, rng, RECIPE_SPLITS["pascal"])
+        for split, _ in RECIPE_SPLITS["pascal"]:
+            precompute(voc, split)
+        out["tree_s"] = time.perf_counter() - t0
+        log(f"recipes: trees written in {out['tree_s']:.2f} s "
+            f"({RECIPE_SPLITS}; Cityscapes 1024x2048, CVPPP 530x500, "
+            f"Pascal 375x500 and its precompute)")
+        data = {"cityscapes": ["-cityscapes_dir", cs],
+                "leaves": ["-leaves_dir", a1, "-leaves_test_dir", a1_test],
+                "pascal": ["-pascal_dir", voc]}
+        where = ["-models_root", os.path.join(root, "models"), "-seed",
+                 str(args.seed)]
+        for ds in ("cityscapes", "leaves", "pascal"):
+            extra = (data[ds] + where + ["-max_epoch", str(RECIPE_EPOCHS)]
+                     + RECIPE_OVERRIDES.get(ds, []))
+            name = f"train_{ds}"
+            log(f"recipe {name}: {' '.join(recipes.argv(name))}; "
+                f"overrides {' '.join(extra)}")
+            out["train"][ds] = recipe_train(name, extra, args.seed)
+            for kind in ("eval", "display"):
+                name = f"{kind}_{ds}"
+                out["eval"][name] = recipe_eval(name, data[ds] + where)
+            out["forward_err"][ds] = recipe_forward_check(
+                f"eval_{ds}", data[ds] + where)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"recipes phase: {out['wall_s']:.1f} s, trees "
+        f"{out['tree_s']:.2f} s; loop ms per train step (steps that "
+        f"waited for the loader) / loader ms per batch alone / step ms "
+        f"(CUDA events) " + ", ".join(
+            f"{ds} {r['loop_ms_per_train_step'] or float('nan'):.1f} "
+            f"({r['loop_gaps']}) / {r['loader_ms_per_batch']:.1f} / "
+            f"{r['step_ms']:.1f}" for ds, r in out["train"].items())
+        + "; s per image " + ", ".join(
+            f"{n} {r['s_per_image']:.3f}" for n, r in out["eval"].items()))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -3006,6 +3492,7 @@ def main() -> int:
         shutil.rmtree(models, ignore_errors=True)
     parallel = parallel_phase(args, out_dir)
     soak = soak_phase(args)
+    recipe_runs = recipes_phase(args)
 
     # ---- 5. timings ----------------------------------------------------
     encoder = enc_p
@@ -3124,7 +3611,7 @@ def main() -> int:
                        "train": train, "train_batch": tb,
                        "trainer": trainer, "options": options,
                        "parallel": parallel,
-                       "soak": soak,
+                       "soak": soak, "recipes": recipe_runs,
                        "warp": warp,
                        "backward_cells": {k: v["cells"]
                                           for k, v in bwd.items()},

@@ -19,7 +19,9 @@ one process a GPU (``parallel/``, the trainer's ``-num_devices`` and
 multi-process flags), streaming inference shards the image's rows over
 the ranks (``evals/streaming.py``), and the CVPPP contest harness
 (``evals/cvppp_harness.py``) and the Pascal VOC + SBD merge
-(``data/tools/pascalplus_gen.py``) run on the host.
+(``data/tools/pascalplus_gen.py``) run on the host. ``recipes.py`` holds
+the repository's nine run recipes (``scripts/*.sh``) and runs them
+through the port's command-line modules.
 
 Kernel wrappers dispatch on the device of the tensors they are given: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the

@@ -58,7 +58,8 @@ def log_to(cfg: Config, name: str):
 
 def main(argv=None, device=None):
     """Returns {"images", "forward_s", "annotations", "stats" (None with
-    --no_run_coco_eval), "per_class" (with --all_classes)}."""
+    --no_run_coco_eval or a dataset other than Pascal), "per_class" (with
+    --all_classes)}."""
     device = resolve_device(device, "cli.eval")
     exact_fp32()
     cfg = config_from_args(argv)
@@ -69,7 +70,11 @@ def main(argv=None, device=None):
         print("Split is %s" % eval_cfg.eval_split)
         print("Evaluating for %d images" % len(ev.sample_list))
         print("Number of classes is %d" % len(ev.class_names))
-        if eval_cfg.no_run_coco_eval:
+        # only Pascal has COCO ground truth: Cityscapes and CVPPP (whose
+        # display recipes run this CLI) are annotated and displayed, not
+        # scored here (the JAX package raises for them without
+        # --no_run_coco_eval)
+        if eval_cfg.no_run_coco_eval or eval_cfg.dataset != "pascal":
             results = {"annotations": len(ev.create_annotations()),
                        "stats": None}
         else:

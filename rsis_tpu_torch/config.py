@@ -7,6 +7,10 @@ command-line flags, so a JAX ``Config`` and this one describe the same
 model and the same run, training, evaluation and prediction alike.
 Kernel dispatch goes by tensor device, so there is no ``pallas`` knob; the
 JAX package's checkpoint-format knob is not here and its flag is refused.
+The reference's ``-server``, ``--cpu`` and ``-ngpus`` are accepted and
+saved, as in the JAX package, and read by nothing: ``--cpu`` does not
+move a run off the card (the device is the caller's, ``main(argv,
+device)``), and ``-num_devices`` sets the data parallelism.
 The data-parallel and multi-process fields (``num_devices``,
 ``coordinator``, ``num_processes``, ``process_id``, ``multihost``) are
 JAX's, read by ``cli/train.py`` (one process a GPU,
@@ -76,6 +80,7 @@ class Config:
     log_term: bool = False
     visdom: bool = False
     port: int = 8097
+    server: str = "http://localhost"  # kept for CLI compatibility
 
     # loss weights
     class_weight: float = 0.1
@@ -94,6 +99,9 @@ class Config:
     shear: float = 0.1
     zoom: float = 0.7
 
+    # kept for CLI compatibility, read by nothing (the JAX package's)
+    use_gpu: bool = True
+    ngpus: int = 1
     # data parallelism: num_devices ranks on this host (0: every visible
     # GPU; one process a device), or one rank a process joined through
     # coordinator/num_processes/process_id or the launcher's environment
@@ -231,6 +239,7 @@ def get_parser() -> argparse.ArgumentParser:
     switch("--log_term", "log_term")
     switch("--visdom", "visdom")
     flag("-port", "port", type=int)
+    flag("-server", "server")
     # loss weights
     flag("-class_weight", "class_weight", type=float)
     flag("-iou_weight", "iou_weight", type=float)
@@ -243,6 +252,13 @@ def get_parser() -> argparse.ArgumentParser:
     flag("-translation", "translation", type=float)
     flag("-shear", "shear", type=float)
     flag("-zoom", "zoom", type=float)
+    # the reference's hardware flags, accepted and ignored
+    flag("--cpu", "use_gpu", action="store_false",
+         help="accepted for compatibility and ignored: the run stays on "
+         "the caller's device (the card for the command line)")
+    flag("-ngpus", "ngpus", type=int,
+         help="accepted for compatibility and ignored: -num_devices sets "
+         "the data parallelism")
     # data parallelism
     flag("-num_devices", "num_devices", type=int)
     flag("-coordinator", "coordinator", type=str)

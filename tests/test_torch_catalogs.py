@@ -28,6 +28,7 @@ from rsis_tpu_torch.data import catalogs
 from rsis_tpu_torch.data.base import normalize_image
 from rsis_tpu_torch.data.tools.palettes import pascal_palette
 from rsis_tpu_torch.data.tools.pascal_precompute import run as precompute
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pair(**kw):

@@ -26,6 +26,7 @@ from rsis_tpu.ops import pallas_decode as jpd
 from rsis_tpu.ops import pallas_decode_vjp as jvjp
 from rsis_tpu_torch.ops import fused_cell_vjp as tvjp
 from rsis_tpu_torch.ops.conv3x3 import conv3x3_rowmajor
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (B, H, W, Cx, C): an up-input cell and a cell without one (cell 0)
 GEOMS = [(2, 4, 16, 16, 8), (2, 4, 32, 0, 16)]

@@ -30,6 +30,7 @@ from rsis_tpu_torch.models.decoder import RSISDecoder
 from rsis_tpu_torch.models.rsis import decode_sequence
 from rsis_tpu_torch.ops.clstm_step import (clstm_step, clstm_step_ref,
                                            fused_convlstm_step, ohwi_weight)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 3e-5
 

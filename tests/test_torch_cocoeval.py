@@ -12,6 +12,7 @@ from rsis_tpu.evals.cocoeval import COCOeval as JaxCOCOeval
 from rsis_tpu_torch.evals.coco import COCO
 from rsis_tpu_torch.evals.cocoeval import COCOeval
 from rsis_tpu_torch.kernels import mask as pmask
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rle(m):

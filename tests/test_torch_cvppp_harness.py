@@ -18,6 +18,7 @@ from rsis_tpu_torch.evals.cvppp_harness import (lsc_evaluation,
                                                 parse_result_csv,
                                                 score_experiment,
                                                 _nearest, _to_label_image)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _save_label(path, lab):

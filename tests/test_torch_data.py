@@ -25,6 +25,7 @@ from rsis_tpu_torch.config import Config, config_from_args
 from rsis_tpu_torch.data import base as port_base
 from rsis_tpu_torch.data.catalogs import SyntheticBlobs, get_dataset
 from rsis_tpu_torch.data.pipeline import DataLoader
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(dataset="synthetic", imsize=48, gt_maxseqlen=6, num_classes=5,
           synthetic_length=7, synthetic_max_instances=5, seed=3)

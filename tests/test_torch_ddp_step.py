@@ -52,6 +52,7 @@ from rsis_tpu_torch.models.weights import from_jax_variables
 from rsis_tpu_torch.parallel.mesh import Group, global_batch_stats
 from rsis_tpu_torch.train import step as port_step
 from torch_dist_worker import join, start
+from torch_threads import one_thread
 
 T = 3
 COMMON = dict(base_model="tiny", hidden_size=16, num_classes=4, imsize=64,
@@ -241,10 +242,8 @@ def test_r50_batch_norm_arithmetics_against_a_float64_step(monkeypatch):
     torch.manual_seed(0)
     weights = tuple(m.state_dict() for m in build_models(cfg))
     batch = synthetic_wire_batch(np.random.default_rng(0), 4, 64, 64, 5, 4)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     got = {}
-    try:
+    with one_thread():
         for dtype in (torch.float64, torch.float32):
             monkeypatch.setattr(port_step, "compute_dtype",
                                 lambda cfg, dtype=dtype: dtype)
@@ -261,8 +260,6 @@ def test_r50_batch_norm_arithmetics_against_a_float64_step(monkeypatch):
                         T, rng=torch.Generator().manual_seed(7))
                 assert {g.dtype for g in grads.values()} == {dtype}
                 got[name, dtype] = (total.item(), grads)
-    finally:
-        torch.set_num_threads(threads)
     want_total, want = got["f", torch.float64]
     backbone = [k for k in want if k.startswith("encoder.base.")]
     rest = [k for k in want if k not in backbone]
@@ -288,7 +285,7 @@ def _losses(path):
                                        for r in recs]
 
 
-def test_cli_train_num_devices_2_matches_one_process(tmp_path):
+def test_cli_train_num_devices_2_matches_one_process(tmp_path, monkeypatch):
     """Two epochs through ``cli.train`` on two CPU ranks against one
     process. SGD, not the default Adam: the skip convolutions' biases
     have a true gradient of zero (BatchNorm follows them), so each run's
@@ -296,7 +293,10 @@ def test_cli_train_num_devices_2_matches_one_process(tmp_path):
     a step; through the BatchNorm running means that moves the val losses
     by about 1e-5 within two epochs in any two correct runs
     (``tests/test_torch_step_variants.py`` bounds those biases by lr).
-    SGD moves them by lr times the noise."""
+    SGD moves them by lr times the noise. Each process computes with one
+    intra-op thread (``tests/torch_threads.py``): the spawned ranks read
+    ``OMP_NUM_THREADS``."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     argv = ["-dataset", "synthetic", "-base_model", "tiny", "-hidden_size",
             "16", "-num_classes", "3", "-imsize", "32", "-maxseqlen", "2",
             "-gt_maxseqlen", "5", "-batch_size", "4", "-max_epoch", "2",
@@ -304,9 +304,10 @@ def test_cli_train_num_devices_2_matches_one_process(tmp_path):
             "1", "--log_term", "-class_loss_after", "0", "-stop_loss_after",
             "0", "-optim", "sgd", "-optim_cnn", "sgd", "-models_root",
             str(tmp_path)]
-    port_cli.main(argv + ["-model_name", "one"], device="cpu")
-    assert port_cli.main(argv + ["-model_name", "two", "-num_devices", "2"],
-                         device="cpu") is None
+    with one_thread():
+        port_cli.main(argv + ["-model_name", "one"], device="cpu")
+        assert port_cli.main(argv + ["-model_name", "two", "-num_devices",
+                                     "2"], device="cpu") is None
     one, events_one = _losses(tmp_path / "one" / "metrics.jsonl")
     two, events_two = _losses(tmp_path / "two" / "metrics.jsonl")
     assert events_two == events_one and len(events_one) == 8

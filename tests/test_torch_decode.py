@@ -28,6 +28,7 @@ from rsis_tpu_torch.models import rowmajor_decoder as trm
 from rsis_tpu_torch.models.decoder import RSISDecoder
 from rsis_tpu_torch.models.rsis import decode_sequence
 from rsis_tpu_torch.models.weights import decoder_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 T = 3

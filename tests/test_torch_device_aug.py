@@ -29,6 +29,7 @@ from rsis_tpu.data import device_aug as jax_aug
 from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.data import device_aug as port_aug
 from test_torch_warp import assert_equal_except_f32_ties
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROT, TRANS, SHEAR = 10.0, 0.1, 0.1
 

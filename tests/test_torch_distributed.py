@@ -15,6 +15,7 @@ from rsis_tpu_torch.parallel import (Group, create_mesh, distributed,
                                      global_batch_slice, initialize,
                                      shard_batch)
 from torch_dist_worker import launch
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_single_process_noop():

@@ -1,9 +1,9 @@
 """The port's evaluation entry points end to end on the CPU, tiny backbone:
 the port's trainer (``cli.train``) writes a checkpoint (concat and mul
-skips, 21 classes, synthetic data), then ``cli.eval`` (Pascal),
-``cli.eval_cityscapes``, ``cli.eval_leaves`` and ``cli.predict`` run
-with ``device="cpu"`` on miniature trees (``tests/torch_eval_trees.py``)
-and write their outputs; ``load_eval_variables`` resolves the same
+skips, 21 classes, synthetic data), then ``cli.eval`` (Pascal scored;
+Cityscapes and CVPPP annotated only), ``cli.eval_cityscapes``,
+``cli.eval_leaves`` and ``cli.predict`` run with ``device="cpu"`` on
+miniature trees (``tests/torch_eval_trees.py``) and write their outputs; ``load_eval_variables`` resolves the same
 ``Config`` fields as the JAX package's from the same ``args.json``."""
 
 import dataclasses
@@ -28,6 +28,7 @@ from rsis_tpu_torch.data.tools.palettes import pascal_palette
 from rsis_tpu_torch.data.tools.pascal_precompute import run as precompute
 from rsis_tpu_torch.kernels import mask as maskUtils
 from rsis_tpu_torch.train.checkpoint import load_weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 SKIPS = ["concat", "mul"]
 
@@ -70,6 +71,47 @@ def test_eval_pascal(setup, skip):
     assert "Evaluating for 3 images" in log and "Average Precision" in log
     assert res["images"] == 3 and res["forward_s"] > 0
     assert len(res["stats"]) == 12 and np.isfinite(res["stats"]).all()
+
+
+@pytest.mark.parametrize("dataset", ["leaves", "cityscapes"])
+def test_eval_scores_only_pascal(setup, dataset, tmp_path):
+    """``cli.eval`` runs the COCO evaluation on Pascal alone (the display
+    recipes of Cityscapes and CVPPP run it without --no_run_coco_eval):
+    on their trees it annotates as with the flag and returns no stats,
+    where the JAX package's ``Evaluator.run_eval`` raises for want of
+    ground truth."""
+    from rsis_tpu.evals.evaluator import Evaluator as JaxEvaluator
+    root, models, data = setup
+    argv = _argv(models, "concat", "-dataset", dataset, f"-{dataset}_dir",
+                 data[dataset], "-eval_split", "val", "-batch_size", "2",
+                 "-stop_th", "0", "-min_size", "0", "--log_term")
+    res = cli_eval.main(argv, device="cpu")
+    flagged = cli_eval.main(argv + ["--no_run_coco_eval"], device="cpu")
+    assert res["stats"] is None and res["annotations"] > 0
+    assert res["images"] == flagged["images"] == 2
+    assert res["annotations"] == flagged["annotations"]
+    # JAX's evaluator, as its cli.eval calls it without the flag
+    jax_cfg = jax_config_from_args(argv[:-1] + ["-pascal_dir",
+                                                str(tmp_path)])
+    ev = types.SimpleNamespace(cfg=jax_cfg, sample_list=["a"],
+                               class_names=["bg", "fg"],
+                               native_size=lambda name: (4, 4),
+                               gt_anns=None)
+    with pytest.raises(RuntimeError, match="no ground-truth annotations"):
+        JaxEvaluator.run_eval(ev)
+
+
+def test_eval_pascal_without_ground_truth_raises(setup):
+    """Pascal without ``VOCGT_<split>.pkl`` (no precompute for the test
+    split) raises as the JAX package's ``Evaluator.run_eval`` does."""
+    root, models, data = setup
+    assert not os.path.exists(os.path.join(data["pascal"],
+                                           "VOCGT_test.pkl"))
+    with pytest.raises(RuntimeError, match="no ground-truth annotations"):
+        cli_eval.main(_argv(models, "concat", "-dataset", "pascal",
+                            "-pascal_dir", data["pascal"], "-eval_split",
+                            "test", "-batch_size", "2", "--log_term"),
+                      device="cpu")
 
 
 @pytest.mark.parametrize("skip", SKIPS)

@@ -35,6 +35,7 @@ from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.data.tools.palettes import pascal_palette
 from rsis_tpu_torch.data.tools.pascal_precompute import run as precompute
 from rsis_tpu_torch.evals import cityscapes_ap, cvppp, evaluator, exporters
+from torch_threads import one_torch_thread  # noqa: F401
 
 _VARIABLES = {}
 

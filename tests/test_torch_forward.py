@@ -30,6 +30,7 @@ from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.evals.forward import make_forward
 from rsis_tpu_torch.models.rsis import build_models
 from rsis_tpu_torch.models.weights import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 _INITS = {}

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from rsis_tpu.ops import pallas_decode as jpd
 from rsis_tpu_torch.ops import fused_cell as tfc
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 3e-5
 

@@ -25,6 +25,7 @@ from rsis_tpu_torch.data import augment as port_aug
 from rsis_tpu_torch.data import catalogs as port_catalogs
 
 from tests.torch_eval_trees import cityscapes_tree, leaves_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _draws(seed, n):

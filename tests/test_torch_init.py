@@ -34,21 +34,12 @@ from rsis_tpu.models import rsis as jax_rsis
 from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.models.rsis import TRUNCATED_NORMAL_STD, init_weights
 from rsis_tpu_torch.models.weights import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 BACKBONES = ("tiny", "resnet34", "resnet50", "vgg16")
 KW = dict(hidden_size=16, num_classes=5, imsize=32)
 STD_REL_TOL = 0.05
 MIN_ENTRIES = 4096
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for the draws: the suite runs several test
-    processes side by side."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", params=BACKBONES)

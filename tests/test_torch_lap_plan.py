@@ -26,6 +26,7 @@ from scipy.optimize import linear_sum_assignment
 from rsis_tpu.ops.pallas_matching import solve_lap_batch as jax_lap
 from rsis_tpu_torch.ops import lap
 from rsis_tpu_torch.ops.matching import hungarian, perm_from_row4col
+from torch_threads import one_torch_thread  # noqa: F401
 
 INF = np.float32(1e9)
 NONE = np.uint32(0xFFFFFFFF)

@@ -29,6 +29,7 @@ from rsis_tpu_torch.evals.cvppp import evaluate_batch
 from rsis_tpu_torch.models.rsis import build_models, forward, init_weights
 from rsis_tpu_torch.models.weights import from_jax_variables
 from rsis_tpu_torch.train import step as port_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 200
 PARITY_STEPS = 5
@@ -37,16 +38,6 @@ KW = dict(dataset="synthetic", base_model="tiny", hidden_size=16,
           batch_size=4, resize=True, lr=1e-2, lr_cnn=3e-3,
           update_encoder=True, compute_dtype="float32")
 CFG = Config(**KW)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The tiny step is a few thousand small ops: one intra-op thread
-    runs it fastest, and leaves the other cores to other test files."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from rsis_tpu_torch.models.weights import (from_jax_variables,
 from rsis_tpu_torch.train import loop as port_loop
 from rsis_tpu_torch.train import step as port_step
 from rsis_tpu_torch.train.checkpoint import model_dir, save_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 RUN = dict(dataset="synthetic", base_model="tiny", hidden_size=16,
            num_classes=3, imsize=32, maxseqlen=3, gt_maxseqlen=5,

@@ -22,6 +22,7 @@ from rsis_tpu.train.optim import split_params as jax_split
 from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.ops import losses as tl
 from rsis_tpu_torch.train import optim as topt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _loss_inputs(seed=0, b=6, n=3, hw=50, k=4):

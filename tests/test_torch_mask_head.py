@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from rsis_tpu.ops.mask_head import mask_head_fused
 from rsis_tpu.ops.pallas_mask_head import mask_head_pallas
 from rsis_tpu_torch.ops import mask_head as tmh
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

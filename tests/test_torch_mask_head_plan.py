@@ -28,6 +28,7 @@ from rsis_tpu.ops.pallas_mask_head import mask_head_pallas_t
 from rsis_tpu_torch.models import decoder as dec_mod
 from rsis_tpu_torch.models.decoder import RSISDecoder, skip_widths
 from rsis_tpu_torch.ops import mask_head as mh
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))

@@ -21,6 +21,7 @@ from rsis_tpu.ops import matching as jmatch
 from rsis_tpu.ops.pallas_matching import solve_lap_batch as jax_lap
 from rsis_tpu_torch.ops import matching as tmatch
 from rsis_tpu_torch.ops.lap import solve_lap_batch, solve_lap_batch_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 4
 

@@ -29,6 +29,7 @@ from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.utils import monitor as mon
 from rsis_tpu_torch.utils import plot_curves, profiling
 from rsis_tpu_torch.utils.dashboard import Dashboard
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_dashboard_serves_metrics_and_snapshots(tmp_path):

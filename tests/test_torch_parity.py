@@ -18,6 +18,7 @@ from rsis_tpu.models import backbones as fb
 from rsis_tpu.models import torch_import as ti
 from rsis_tpu.models.decoder import RSISDecoder as FlaxDecoder
 from rsis_tpu.models.encoder import FeatureExtractor as FlaxEncoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-4
 

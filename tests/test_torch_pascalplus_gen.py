@@ -20,6 +20,7 @@ from scipy.io import savemat
 
 from rsis_tpu.data.tools import pascalplus_gen as jax_gen
 from rsis_tpu_torch.data.tools import pascalplus_gen as port_gen
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _lines(path, items):

@@ -23,6 +23,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rsis_tpu"}
@@ -173,6 +174,7 @@ def test_import_needs_no_nvcc_and_builds_nothing(tmp_path):
         "import rsis_tpu_torch.parallel, rsis_tpu_torch.evals.streaming\n"
         "import rsis_tpu_torch.evals.cvppp_harness\n"
         "import rsis_tpu_torch.data.tools.pascalplus_gen\n"
+        "import rsis_tpu_torch.recipes\n"
         "import rsis_tpu_torch.kernels._binding as rle\n"
         "assert rle._lib is None\n"
         "assert b.load.cache_info().currsize == 0\n"

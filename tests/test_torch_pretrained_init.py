@@ -30,6 +30,7 @@ from rsis_tpu_torch.models import torch_import as ti
 from rsis_tpu_torch.models.backbones import resnet34, vgg16
 from rsis_tpu_torch.models.encoder import FeatureExtractor
 from rsis_tpu_torch.models.weights import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = (32, 32)
 

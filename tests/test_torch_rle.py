@@ -11,6 +11,7 @@ import pytest
 from rsis_tpu.kernels import mask as jmask
 from rsis_tpu_torch.kernels import _binding
 from rsis_tpu_torch.kernels import mask as pmask
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _masks(seed, h, w, n):

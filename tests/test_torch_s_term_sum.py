@@ -8,6 +8,7 @@ import torch
 
 from rsis_tpu_torch.models import rowmajor_decoder as rmd
 from rsis_tpu_torch.models.decoder import RSISDecoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -29,6 +29,7 @@ from rsis_tpu_torch.cli import soak_eval
 from rsis_tpu_torch.config import Config
 from rsis_tpu_torch.models.weights import train_state_from_jax
 from rsis_tpu_torch.train.checkpoint import save_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(dataset="synthetic", base_model="tiny", hidden_size=16,
           num_classes=5, imsize=64, resize=True, maxseqlen=4,

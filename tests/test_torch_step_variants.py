@@ -35,6 +35,7 @@ from rsis_tpu_torch.evals.forward import make_forward
 from rsis_tpu_torch.models.weights import (from_jax_variables,
                                            train_state_from_jax)
 from rsis_tpu_torch.train import step as port_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 3
 SGD = dict(base_model="tiny", hidden_size=16, num_classes=4, imsize=64,

@@ -30,6 +30,7 @@ from rsis_tpu_torch.models.rsis import build_models, forward
 from rsis_tpu_torch.models.weights import from_jax_variables
 from rsis_tpu_torch.parallel.mesh import Group
 from torch_dist_worker import join, start
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = 2
 BASE = dict(base_model="tiny", hidden_size=16, num_classes=3, maxseqlen=T,

@@ -18,6 +18,7 @@ import torch
 from rsis_tpu.models import torch_ref as jax_tr
 from rsis_tpu_torch.cli import verify_parity
 from rsis_tpu_torch.models import torch_ref as tr
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARGV = ["-base_model", "resnet34", "-hidden_size", "16", "-num_classes",
         "5", "-imsize", "32", "-maxseqlen", "2", "-n_images", "1"]

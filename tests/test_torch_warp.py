@@ -25,6 +25,7 @@ from rsis_tpu.data.device_aug import sample_affine_matrices
 from rsis_tpu.ops import pallas_warp as jax_warp
 from rsis_tpu_torch.data.device_aug import augment_wire_batch_with
 from rsis_tpu_torch.ops import warp as port_warp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mats(b, h, w, seed, rotation=10.0, translation=0.1, shear=10.0,

@@ -30,6 +30,7 @@ import torch
 from rsis_tpu.data.device_aug import sample_affine_matrices as jax_mats
 from rsis_tpu.ops.pallas_warp import affine_warp_planes
 from rsis_tpu_torch.ops import warp
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))

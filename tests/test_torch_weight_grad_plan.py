@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
