@@ -62,7 +62,7 @@ inputs, timers and bounds:
 - --mul: the mul-skip forward at --batch, --steps (512x1024, bf16, K8
   in every cell, K2 on the head where the tree routes it; chip_smoke.py's
   phase 3b): ms a forward, images per second; with --profile, device
-  time by operation and the idle share of one forward;
+  time by operation of one forward;
 - --step: the train step at --batch, --steps (resnet101, device
   augmentation on, bf16): a warm-up step, then --iters steps each timed
   by the host clock around a synchronised step; with --profile, device
@@ -739,10 +739,9 @@ def time_step(cs, args) -> dict:
                    or "warp_pixel_kernel" in k},
             "direct_copy": {k: v for k, v in kernels.items()
                             if "direct_copy" in k}}
-        out["profile"] = {"wall_ms": wall_ms, "busy_ms": busy,
-                          "idle_share": 1 - busy / wall_ms}
-        print(f"profiled step: device busy {busy:.3f} ms of {wall_ms:.3f} "
-              f"ms wall (idle share {1 - busy / wall_ms:.3f})", flush=True)
+        out["profile"] = {"wall_ms": wall_ms, "busy_ms": busy}
+        print(f"profiled step: kernels' device ms summed {busy:.3f}, "
+              f"{wall_ms:.3f} ms wall", flush=True)
         for name, group in groups.items():
             out["profile"][name] = {k: list(v) for k, v in group.items()}
             out[f"{name}_device_ms"] = sum(ms for _, ms in group.values())

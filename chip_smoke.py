@@ -129,16 +129,16 @@ Phases, each fatal on failure:
      kernels and the plain path (FP32_TOL for the recipes' fp32
      checkpoints); printed: the loop's ms per train step over the steps
      that waited for the loader, the loader's ms per batch alone (its
-     first 2), the step's ms (CUDA events) and a profiled step's device
-     busy and idle share, eval s per image;
+     first 2), the step's ms (CUDA events) and a profiled step's summed
+     kernel ms, eval s per image;
   5. timings after warm-up: encoder, decode step, images per second and
      train ms per step from CUDA events or host clocks around whole,
      synchronised calls; each kernel's device time (CUDA-graph replay)
      against its plain version's, its bound and, where one exists, the
      PyTorch library call for the same function (K2 in both layouts,
      beside the two-call interpolate + conv2d yardstick); with --profile,
-     device time by operation and the idle share of one forward, one
-     step, a resumed trainer run and the Cityscapes evaluation.
+     device time by operation of one forward, one step, a resumed
+     trainer run and the Cityscapes evaluation.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -308,9 +308,9 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def profile_call(fn, out_dir, name: str) -> dict:
-    """Device time by operation over one call of fn, and the device's busy
-    share of the call's wall time (torch.profiler). Returns the idle share
-    and the device ms of the 25 busiest operations."""
+    """Device time by operation over one call of fn (torch.profiler).
+    Returns the call's wall ms, the kernels' summed device ms and the
+    device ms of the 25 busiest operations."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -328,16 +328,15 @@ def profile_call(fn, out_dir, name: str) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    idle = 1 - busy_ms / wall_ms
-    log(f"profile {name}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
-        f"wall (idle share {idle:.3f})")
+    log(f"profile {name}: kernels' device ms summed {busy_ms:.3f}, "
+        f"{wall_ms:.3f} ms wall")
     top = sorted(kernels, key=dev_us, reverse=True)[:25]
     for e in top:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "top": [[e.key, e.count, dev_us(e) / 1e3] for e in top]}
 
 
@@ -1793,8 +1792,8 @@ def mul_forward_phase(args, xs) -> dict:
     the batches xs, K8's and K2's launches read from that run (5 T and T
     per forward, K1 none), the outputs held against the plain path on the
     card and
-    the images per second (with --profile, device time by operation and
-    the idle share of one forward)."""
+    the images per second (with --profile, device time by operation of
+    one forward)."""
     from rsis_tpu_torch import Config
     from rsis_tpu_torch.evals.forward import make_forward
     from rsis_tpu_torch.models.rsis import build_models, forward
@@ -2031,7 +2030,7 @@ def eval_phase(args, out_dir, models) -> dict:
     cli.eval (voc, COCO stats) and cli.predict (voc, two images): every
     output file, finite scores and the kernels' launches per forward are
     checked; the wall time per image and the forward's share of it are
-    printed (with --profile, the device's idle share of the Cityscapes
+    printed (with --profile, device time by operation of the Cityscapes
     run)."""
     import shutil
     import tempfile
@@ -2921,7 +2920,7 @@ def recipe_train(name: str, extra: list, seed: int) -> dict:
     checkpoint and kernel launches checked; the loop's ms per train step
     (over the steps that waited for a new batch), the loader's ms per
     batch alone over its first 2, and the step's ms on the run's first
-    batch (CUDA events; a profiled call's device busy and idle share); one
+    batch (CUDA events; a profiled call's summed kernel ms); one
     step on that batch through the kernels and through the plain path."""
     import inspect
     import numpy as np
@@ -3011,7 +3010,7 @@ def recipe_train(name: str, extra: list, seed: int) -> dict:
     step_ms = cuda_ms(lambda: step(state, batch, flags, gen),
                       iters=RECIPE_STEP_ITERS, warmup=1)
     # the events span the step's host waits too; one profiled call gives
-    # the device's busy ms and its idle share of that call's wall time
+    # the kernels' summed device ms
     profiled = profile_call(lambda: step(state, batch, flags, gen), None,
                             name)
     # the same step through the kernels and the plain path (fp32, the
@@ -3046,9 +3045,9 @@ def recipe_train(name: str, extra: list, seed: int) -> dict:
         f"totals {ev['val_totals']}; loop {loop}; the loader alone "
         f"{loader_ms:.3f} ms per batch (2 batches, {cfg.num_workers} "
         f"workers); the step on the first batch {step_ms:.3f} ms (CUDA "
-        f"events, {RECIPE_STEP_ITERS} steps); one profiled step: device "
-        f"busy {profiled['busy_ms']:.3f} ms of {profiled['wall_ms']:.3f} "
-        f"ms wall (idle share {profiled['idle_share']:.3f}); launches "
+        f"events, {RECIPE_STEP_ITERS} steps); one profiled step: "
+        f"kernels' device ms summed {profiled['busy_ms']:.3f}, "
+        f"{profiled['wall_ms']:.3f} ms wall; launches "
         f"{launches}")
     return {"wall_s": wall, "batch": cfg.batch_size, "hw": list(hw),
             "T": T, "dtype": cfg.compute_dtype, "augment": cfg.augment,
@@ -3058,7 +3057,6 @@ def recipe_train(name: str, extra: list, seed: int) -> dict:
             "loader_ms_per_batch": loader_ms, "step_ms": step_ms,
             "profiled_step_busy_ms": profiled["busy_ms"],
             "profiled_step_wall_ms": profiled["wall_ms"],
-            "profiled_step_idle_share": profiled["idle_share"],
             "loss_rel_err": loss_rel, "grad_worst_share": worst}
 
 

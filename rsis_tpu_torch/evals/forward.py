@@ -19,6 +19,7 @@ from torch import nn
 from ..config import Config
 from ..device import resolve_device
 from ..models.rsis import build_models, compute_dtype, forward
+from ..utils.profiling import span
 
 Weights = Union[Mapping[str, torch.Tensor], nn.Module]
 
@@ -61,14 +62,16 @@ def make_forward(cfg: Config, T: int | None = None, device=None):
     loaded = [None, None]
 
     def fn(weights: Tuple[Weights, Weights], x_nhwc: torch.Tensor):
-        for i, (module, w) in enumerate(zip((encoder, decoder), weights)):
-            key = _weights_key(w)
-            if not _same_key(loaded[i], key):
-                module.load_state_dict(
-                    w.state_dict() if isinstance(w, nn.Module) else w)
-                loaded[i] = key
-        x = torch.as_tensor(x_nhwc).to(device).permute(0, 3, 1, 2)
-        return forward(cfg, encoder, decoder, x.contiguous(), T=T)
+        with span("rsis.forward"):
+            for i, (module, w) in enumerate(zip((encoder, decoder),
+                                                weights)):
+                key = _weights_key(w)
+                if not _same_key(loaded[i], key):
+                    module.load_state_dict(
+                        w.state_dict() if isinstance(w, nn.Module) else w)
+                    loaded[i] = key
+            x = torch.as_tensor(x_nhwc).to(device).permute(0, 3, 1, 2)
+            return forward(cfg, encoder, decoder, x.contiguous(), T=T)
 
     return fn
 

@@ -38,6 +38,7 @@ from ..ops.fused_cell import fused_cell_rowmajor_ref, pack_cell_weights
 from ..ops.fused_cell_vjp import FusedCellFunction
 from ..ops.mask_head import MaskHeadFunction, mask_head_ref
 from ..ops.upsample import interp_matrix
+from ..utils.profiling import span
 from .decoder import RSISDecoder, decoder_widths
 
 CHANNEL_SEPARABLE = ("concat", "sum", "none")
@@ -140,9 +141,10 @@ def rowmajor_decoder_step(decoder: RSISDecoder, cells, carry,
         h_prev, c_prev = carry[i]
         x_pad = None
         if i > 0:
-            x_pad = (_upsample_rowmajor if slab is None
-                     else slab.upsample_rowmajor)(
-                h, h_prev.shape[1], h_prev.shape[3], pad=True)
+            with span("rsis.decode.upsample"):
+                x_pad = (_upsample_rowmajor if slab is None
+                         else slab.upsample_rowmajor)(
+                    h, h_prev.shape[1], h_prev.shape[3], pad=True)
         args = (h_prev, x_pad, c_prev, cell["s"], cell["wt"])
         if slab is None:
             h, c = cell_fn(*args, cx=cell["cx"], ch=cell["ch"])
@@ -182,16 +184,18 @@ def decode_sequence_rowmajor(decoder: RSISDecoder,
     if skip_mode not in CHANNEL_SEPARABLE:
         raise ValueError(f"skip_mode {skip_mode!r} is not channel-separable")
     head_fn = mask_head_ref if plain else MaskHeadFunction.apply
-    cells = _hoist_cells_rowmajor(decoder, skips, skip_mode, dtype)
-    carry = init_carry_rowmajor(skips, decoder.hidden_size, dtype)
-    head_w = decoder.conv_out.weight
-    head_b = decoder.conv_out.bias
-    masks, clss, stops = [], [], []
-    for _ in range(T):
-        (h_fine, cls, stop), carry = rowmajor_decoder_step(
-            decoder, cells, carry, plain=plain)
-        masks.append(head_fn(h_fine, head_w, head_b)[..., 0])
-        clss.append(cls)
-        stops.append(stop)
-    return (torch.stack(masks, dim=1), torch.stack(clss, dim=1),
-            torch.stack(stops, dim=1))
+    with span("rsis.decode"):
+        with span("rsis.hoist"):
+            cells = _hoist_cells_rowmajor(decoder, skips, skip_mode, dtype)
+        carry = init_carry_rowmajor(skips, decoder.hidden_size, dtype)
+        head_w = decoder.conv_out.weight
+        head_b = decoder.conv_out.bias
+        masks, clss, stops = [], [], []
+        for _ in range(T):
+            (h_fine, cls, stop), carry = rowmajor_decoder_step(
+                decoder, cells, carry, plain=plain)
+            masks.append(head_fn(h_fine, head_w, head_b)[..., 0])
+            clss.append(cls)
+            stops.append(stop)
+        return (torch.stack(masks, dim=1), torch.stack(clss, dim=1),
+                torch.stack(stops, dim=1))

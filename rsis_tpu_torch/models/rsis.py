@@ -23,6 +23,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.upsample import upsample_bilinear_align_corners
+from ..utils.profiling import span
 from .decoder import RSISDecoder
 from .encoder import FeatureExtractor
 from .rowmajor_decoder import CHANNEL_SEPARABLE, decode_sequence_rowmajor
@@ -97,13 +98,14 @@ def decode_sequence(decoder: RSISDecoder, skips, T: int, carry=None,
     Returns (masks (B, T, 2H, 2W) logits, class_probs (B, T, K),
     stop_logits (B, T, 1), final_carry)."""
     masks, clss, stops = [], [], []
-    for _ in range(T):
-        (mask, cls, stop), carry = decoder(skips, carry, plain=plain)
-        masks.append(mask[:, 0])
-        clss.append(cls)
-        stops.append(stop)
-    return (torch.stack(masks, dim=1), torch.stack(clss, dim=1),
-            torch.stack(stops, dim=1), carry)
+    with span("rsis.decode"):
+        for _ in range(T):
+            (mask, cls, stop), carry = decoder(skips, carry, plain=plain)
+            masks.append(mask[:, 0])
+            clss.append(cls)
+            stops.append(stop)
+        return (torch.stack(masks, dim=1), torch.stack(clss, dim=1),
+                torch.stack(stops, dim=1), carry)
 
 
 @torch.inference_mode()
@@ -119,7 +121,8 @@ def forward(cfg: Config, encoder: FeatureExtractor, decoder: RSISDecoder,
     T = T if T is not None else cfg.maxseqlen
     dtype = compute_dtype(cfg)
     enc_dtype = next(encoder.parameters()).dtype
-    skips = tuple(s.to(dtype) for s in encoder(x.to(enc_dtype)))
+    with span("rsis.encoder"):
+        skips = tuple(s.to(dtype) for s in encoder(x.to(enc_dtype)))
     # the kernels pack 3x3 gate convolutions
     if cfg.skip_mode in CHANNEL_SEPARABLE and cfg.kernel_size == 3:
         masks, clss, stops = decode_sequence_rowmajor(
@@ -128,6 +131,7 @@ def forward(cfg: Config, encoder: FeatureExtractor, decoder: RSISDecoder,
         masks, clss, stops, _ = decode_sequence(decoder, skips, T,
                                                 plain=plain)
     h, w = x.shape[2], x.shape[3]
-    if tuple(masks.shape[-2:]) != (h, w):
-        masks = upsample_bilinear_align_corners(masks, h, w)
-    return torch.sigmoid(masks), clss, torch.sigmoid(stops)
+    with span("rsis.output"):
+        if tuple(masks.shape[-2:]) != (h, w):
+            masks = upsample_bilinear_align_corners(masks, h, w)
+        return torch.sigmoid(masks), clss, torch.sigmoid(stops)

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import _build
 from .conv3x3 import conv3x3_pullback
 from .fused_cell import (_DTYPE_CODES, _check, cell_plan, fused_cell_rowmajor,
@@ -393,10 +394,11 @@ class FusedCellFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh, dc):
-        h_prev, x_pad, c_prev, s_term, wt = ctx.saved_tensors
-        # autograd may hand over strided cotangents; the kernels take
-        # contiguous ones
-        dg, dc_prev, dwt, dx_pad, dh_prev = cell_bwd_core(
-            h_prev, x_pad, c_prev, s_term, wt, dh.contiguous(),
-            dc.contiguous(), cx=ctx.cx, ch=ctx.ch)
-        return dh_prev, dx_pad, dc_prev, dg, dwt, None, None
+        with span("rsis.backward.cell"):
+            h_prev, x_pad, c_prev, s_term, wt = ctx.saved_tensors
+            # autograd may hand over strided cotangents; the kernels take
+            # contiguous ones
+            dg, dc_prev, dwt, dx_pad, dh_prev = cell_bwd_core(
+                h_prev, x_pad, c_prev, s_term, wt, dh.contiguous(),
+                dc.contiguous(), cx=ctx.cx, ch=ctx.ch)
+            return dh_prev, dx_pad, dc_prev, dg, dwt, None, None

@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
 from .distributed import rank_device
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -216,7 +217,8 @@ def all_reduce_tensors_(group: Group, tensors: Sequence[torch.Tensor],
                         op: str = "sum") -> None:
     """Reduce every tensor over the ranks, in place, a bucket at a time."""
     if group.active:
-        _flat(group, tensors, lambda f: group.all_reduce_(f, op))
+        with span("rsis.allreduce"):
+            _flat(group, tensors, lambda f: group.all_reduce_(f, op))
 
 
 @torch.no_grad()

@@ -73,6 +73,7 @@ from ..ops.matching import hungarian
 from ..ops.upsample import upsample_bilinear_align_corners
 from ..parallel.mesh import (all_reduce_tensors_, global_batch_stats,
                              rows_of)
+from ..utils.profiling import span
 from .optim import init_state, split_params, update_groups
 
 _MEAN = (0.485, 0.456, 0.406)
@@ -199,51 +200,56 @@ def _forward_with_costs(cfg: Config, encoder, decoder, x, y_mask, T: int,
     stop_logits (T, B) fp32 and costs (B, N, T) fp32 (no gradient)."""
     dtype = compute_dtype(cfg)
     h, w = x.shape[1], x.shape[2]
-    with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                        enabled=dtype == torch.bfloat16):
-        skips = encoder(x.permute(0, 3, 1, 2))
-    skips = tuple(s.to(dtype) for s in skips)
-    y_cost = y_mask.to(dtype)
-    y_sum = y_mask.sum(dim=-1, dtype=torch.float32)
+    with span("rsis.encoder"):
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=dtype == torch.bfloat16):
+            skips = encoder(x.permute(0, 3, 1, 2))
+        skips = tuple(s.to(dtype) for s in skips)
+    with span("rsis.decode"):
+        y_cost = y_mask.to(dtype)
+        y_sum = y_mask.sum(dim=-1, dtype=torch.float32)
 
-    def outputs(mask, cls, stop):
-        """(B, h, w) mask logits -> the step's stacked outputs."""
-        if tuple(mask.shape[-2:]) != (h, w):
-            mask = upsample_bilinear_align_corners(mask, h, w)
-        mask_flat = mask.reshape(mask.shape[0], -1)
-        with torch.no_grad():
-            cost_col = soft_iou_cost_matmul(y_sum, y_cost, mask_flat)
-        return mask_flat, cls.float(), stop[:, 0].float(), cost_col
+        def outputs(mask, cls, stop):
+            """(B, h, w) mask logits -> the step's stacked outputs."""
+            if tuple(mask.shape[-2:]) != (h, w):
+                mask = upsample_bilinear_align_corners(mask, h, w)
+            mask_flat = mask.reshape(mask.shape[0], -1)
+            with torch.no_grad():
+                cost_col = soft_iou_cost_matmul(y_sum, y_cost, mask_flat)
+            return mask_flat, cls.float(), stop[:, 0].float(), cost_col
 
-    if (cfg.skip_mode in CHANNEL_SEPARABLE and cfg.kernel_size == 3
-            and not decoder.needs_generator()):
-        cells = _hoist_cells_rowmajor(decoder, skips, cfg.skip_mode, dtype)
-        carry = init_carry_rowmajor(skips, decoder.hidden_size, dtype)
-        head = mask_head_ref if plain else MaskHeadFunction.apply
-        head_w, head_b = decoder.conv_out.weight, decoder.conv_out.bias
+        if (cfg.skip_mode in CHANNEL_SEPARABLE and cfg.kernel_size == 3
+                and not decoder.needs_generator()):
+            with span("rsis.hoist"):
+                cells = _hoist_cells_rowmajor(decoder, skips, cfg.skip_mode,
+                                              dtype)
+            carry = init_carry_rowmajor(skips, decoder.hidden_size, dtype)
+            head = mask_head_ref if plain else MaskHeadFunction.apply
+            head_w, head_b = decoder.conv_out.weight, decoder.conv_out.bias
 
-        def step(carry):
-            (h_fine, cls, stop), carry = rowmajor_decoder_step(
-                decoder, cells, carry, plain=plain)
-            mask = head(h_fine, head_w, head_b)[..., 0]
-            return outputs(mask, cls, stop), carry
-    else:
-        carry = None
+            def step(carry):
+                (h_fine, cls, stop), carry = rowmajor_decoder_step(
+                    decoder, cells, carry, plain=plain)
+                mask = head(h_fine, head_w, head_b)[..., 0]
+                return outputs(mask, cls, stop), carry
+        else:
+            carry = None
 
-        def step(carry):
-            (mask, cls, stop), carry = decoder(skips, carry, generator=rng,
-                                               rows=rows)
-            return outputs(mask[:, 0], cls, stop), carry
+            def step(carry):
+                (mask, cls, stop), carry = decoder(
+                    skips, carry, generator=rng, rows=rows)
+                return outputs(mask[:, 0], cls, stop), carry
 
-    if remat:
-        step = _checkpointed(step, rng if decoder.needs_generator() else None)
-    outs = []
-    for _ in range(T):
-        out, carry = step(carry)
-        outs.append(out)
-    masks, clss, stops, costs = zip(*outs)
-    return (torch.stack(masks), torch.stack(clss), torch.stack(stops),
-            torch.stack(costs, dim=-1))
+        if remat:
+            step = _checkpointed(step, rng if decoder.needs_generator()
+                                 else None)
+        outs = []
+        for _ in range(T):
+            out, carry = step(carry)
+            outs.append(out)
+        masks, clss, stops, costs = zip(*outs)
+        return (torch.stack(masks), torch.stack(clss), torch.stack(stops),
+                torch.stack(costs, dim=-1))
 
 
 def _checkpointed(step, rng: torch.Generator | None = None):
@@ -277,30 +283,33 @@ def _losses(cfg: Config, masks, clss, stops, costs, y_mask, y_class,
     T, b = masks.shape[0], masks.shape[1]
     hw = masks.shape[-1]
     num_classes = clss.shape[-1]
-    with torch.no_grad():
-        # invalid (GT, prediction) pairs cost 10, as in the reference; the
-        # column mask reuses sw_mask
-        valid = (sw_mask[:, :, None] * sw_mask[:, None, :T]).to(costs.dtype)
-        costs = cfg.iou_weight * costs * valid + (1.0 - valid) * 10.0
-        perm = solver(costs)                                   # (B, N)
-    idx = perm[:, :T].T                                        # (T, B)
-    brange = torch.arange(b, device=idx.device)[None, :]
-    y_mask_tb = y_mask[brange, idx]                            # (T, B, HW)
-    y_class_tb = y_class[brange, idx]                          # (T, B)
-    swm_tb = sw_mask[:, :T].T
-    loss_iou = soft_iou_loss(y_mask_tb.reshape(-1, hw),
-                             masks.reshape(-1, hw), swm_tb.reshape(-1),
-                             group=group)
-    loss_class = masked_nll_loss(y_class_tb.reshape(-1),
-                                 clss.reshape(-1, num_classes),
-                                 swm_tb.reshape(-1), group=group)
-    # the stop head learns "keep going": target the mask sample weight,
-    # weighted by the class sample weight
-    loss_stop = masked_bce_loss(swm_tb, stops, sw_class[:, :T].T,
-                                cfg.stop_balance_weight, group=group)
-    total = (cfg.iou_weight * loss_iou
-             + flags.use_class_loss * cfg.class_weight * loss_class
-             + flags.use_stop_loss * cfg.stop_weight * loss_stop)
+    with span("rsis.match"):
+        with torch.no_grad():
+            # invalid (GT, prediction) pairs cost 10, as in the reference;
+            # the column mask reuses sw_mask
+            valid = (sw_mask[:, :, None]
+                     * sw_mask[:, None, :T]).to(costs.dtype)
+            costs = cfg.iou_weight * costs * valid + (1.0 - valid) * 10.0
+            perm = solver(costs)                               # (B, N)
+        idx = perm[:, :T].T                                    # (T, B)
+        brange = torch.arange(b, device=idx.device)[None, :]
+        y_mask_tb = y_mask[brange, idx]                        # (T, B, HW)
+        y_class_tb = y_class[brange, idx]                      # (T, B)
+        swm_tb = sw_mask[:, :T].T
+    with span("rsis.losses"):
+        loss_iou = soft_iou_loss(y_mask_tb.reshape(-1, hw),
+                                 masks.reshape(-1, hw), swm_tb.reshape(-1),
+                                 group=group)
+        loss_class = masked_nll_loss(y_class_tb.reshape(-1),
+                                     clss.reshape(-1, num_classes),
+                                     swm_tb.reshape(-1), group=group)
+        # the stop head learns "keep going": target the mask sample
+        # weight, weighted by the class sample weight
+        loss_stop = masked_bce_loss(swm_tb, stops, sw_class[:, :T].T,
+                                    cfg.stop_balance_weight, group=group)
+        total = (cfg.iou_weight * loss_iou
+                 + flags.use_class_loss * cfg.class_weight * loss_class
+                 + flags.use_stop_loss * cfg.stop_weight * loss_stop)
     return total, (loss_iou, loss_stop, loss_class)
 
 
@@ -326,16 +335,18 @@ def loss_and_grads(cfg: Config, state: TrainState, batch, flags: StepFlags,
     state.decoder.train()
     if device is None:
         device = next(state.decoder.parameters()).device
-    x, y_mask, y_class, sw_mask, sw_class = decode_batch(cfg, batch, device)
     if (cfg.augment and cfg.augment_on_device
             or state.decoder.needs_generator()) and rng is None:
         raise ValueError("device augmentation and dropout draw from the "
                          "step's rng: pass a torch.Generator")
-    rows = rows_of(group, x.shape[0])
-    if cfg.augment and cfg.augment_on_device:
-        x, y_mask = augment_wire_batch(
-            rng, x, y_mask, cfg.rotation, cfg.translation, cfg.shear,
-            zoom_range_for(cfg), plain=plain, rows=rows)
+    with span("rsis.input"):
+        x, y_mask, y_class, sw_mask, sw_class = decode_batch(cfg, batch,
+                                                             device)
+        rows = rows_of(group, x.shape[0])
+        if cfg.augment and cfg.augment_on_device:
+            x, y_mask = augment_wire_batch(
+                rng, x, y_mask, cfg.rotation, cfg.translation, cfg.shear,
+                zoom_range_for(cfg), plain=plain, rows=rows)
     # one rank keeps F.batch_norm (or what a caller's
     # global_batch_stats asks for)
     with (global_batch_stats(group) if rows is not None
@@ -350,8 +361,9 @@ def loss_and_grads(cfg: Config, state: TrainState, batch, flags: StepFlags,
     # the backward's recomputed dropouts rewind rng; leave it where the
     # forward left it
     after_forward = rng.get_state() if remat and rng is not None else None
-    grads = torch.autograd.grad(total, list(params.values()),
-                                allow_unused=True)
+    with span("rsis.backward"):
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
     if after_forward is not None:
         rng.set_state(after_forward)
     grads = {k: torch.zeros_like(p) if g is None else g
@@ -390,16 +402,19 @@ def make_train_step(cfg: Config, T: Optional[int] = None, device=None,
         remat = _resolve_remat(cfg, T)
 
     def train_step(state: TrainState, batch, flags: StepFlags, rng=None):
-        total, (loss_iou, loss_stop, loss_class), grads = loss_and_grads(
-            cfg, state, batch, flags, T, remat=remat, device=device, rng=rng,
-            group=group)
-        # gate closed: the backbone and its optimizer state stay as they
-        # were (its BatchNorm statistics still move)
-        state.enc_opt, state.dec_opt = update_groups(
-            cfg, state.params(), grads, state.enc_opt, state.dec_opt,
-            flags.update_encoder)
-        state.step += 1
-        return state, torch.stack([total, loss_iou, loss_stop, loss_class])
+        with span("rsis.train_step"):
+            total, (loss_iou, loss_stop, loss_class), grads = \
+                loss_and_grads(cfg, state, batch, flags, T, remat=remat,
+                               device=device, rng=rng, group=group)
+            # gate closed: the backbone and its optimizer state stay as
+            # they were (its BatchNorm statistics still move)
+            with span("rsis.optim"):
+                state.enc_opt, state.dec_opt = update_groups(
+                    cfg, state.params(), grads, state.enc_opt, state.dec_opt,
+                    flags.update_encoder)
+            state.step += 1
+            return state, torch.stack([total, loss_iou, loss_stop,
+                                       loss_class])
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, flags: StepFlags, rng=None):

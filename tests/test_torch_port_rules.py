@@ -1,8 +1,8 @@
 """Rules the PyTorch port keeps:
 
-- nothing in rsis_tpu_torch/, and none of chip_smoke.py, chip_bf16_gap.py
-  and chip_k5_step.py, imports jax, flax or rsis_tpu: the port keeps its
-  own copies of what it needs;
+- nothing in rsis_tpu_torch/, and none of chip_smoke.py, chip_bf16_gap.py,
+  chip_k5_step.py and chip_spans.py, imports jax, flax or rsis_tpu: the
+  port keeps its own copies of what it needs;
 - an entry point asked for no device runs on CUDA, and raises where there
   is none, instead of running on the CPU (the trainer with each of its
   options, ``cli.verify_parity --device``, the process group's
@@ -32,7 +32,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rsis_tpu"}
 def _port_files():
     files = sorted((ROOT / "rsis_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "chip_bf16_gap.py",
-                    ROOT / "chip_k5_step.py"]
+                    ROOT / "chip_k5_step.py", ROOT / "chip_spans.py"]
 
 
 def _imported_roots(path: Path):
