@@ -59,6 +59,10 @@ inputs, timers and bounds:
 - --k7: ``warp_by_coefficients`` (K7) at 256x512, bf16 RGB, the bench's
   ranges, B=32 and 8 (``chip_smoke.time_warp``): ms, plain, bound and
   share, the two ``torch.gather`` calls, the augmentation block;
+- --upsample: the inter-cell upsample at the forward's four (512x1024,
+  hidden 128, bf16) for each --k1-batch, checked as chip_smoke.py's phase
+  2 checks it (``check_upsample``) and timed (``time_upsample``: each launch's device ms, the plain
+  version's, ``F.interpolate``'s and the bound);
 - --mul: the mul-skip forward at --batch, --steps (512x1024, bf16, K8
   in every cell, K2 on the head where the tree routes it; chip_smoke.py's
   phase 3b): ms a forward, images per second; with --profile, device
@@ -72,7 +76,7 @@ inputs, timers and bounds:
 
 Prints one JSON object as its last line (and writes it to --out).
 Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8] [--k2] [--k2-sweep]
-                               [--k6] [--k7]
+                               [--k6] [--k7] [--upsample]
                                [--cell-sweep [k1 k4 k8]]
                                [--k1-batch 32 4] [--k4-batch 32 8]
                                [--k5] [--k3] [--k5-batch 32 8] [--sweep]
@@ -665,6 +669,17 @@ def time_k7(cs, b: int, gen) -> dict:
     return out
 
 
+def time_upsample(cs, b: int, gen) -> dict:
+    """The forward's four inter-cell upsamples at B = b, checked and timed
+    by the tree's chip_smoke.py."""
+    from rsis_tpu_torch.models.decoder import decoder_widths
+    geoms = [(512 // 2 ** (5 - i), 1024 // 2 ** (5 - i), ch, 0)
+             for i, ch in enumerate(decoder_widths(128))]
+    shapes = cs.upsample_shapes(geoms, b)
+    return {"checked": cs.check_upsample(shapes, gen),
+            **cs.time_upsample(shapes, gen)}
+
+
 def time_mul(cs, args) -> dict:
     """The mul-skip forward at --batch, --steps (chip_smoke's phase 3b:
     resnet101, hidden 128, 512x1024, bf16, every cell one K8 launch,
@@ -781,6 +796,7 @@ def main() -> int:
                     help="time every plan of K2 at each head shape")
     ap.add_argument("--k6", action="store_true")
     ap.add_argument("--k7", action="store_true")
+    ap.add_argument("--upsample", action="store_true")
     ap.add_argument("--mul", action="store_true")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
@@ -832,6 +848,9 @@ def main() -> int:
         result["k6"] = [time_k6(cs, shape, gen) for shape in K6_SHAPES]
     if args.k7:
         result["k7"] = {b: time_k7(cs, b, gen) for b in K7_BATCHES}
+    if args.upsample:
+        result["upsample"] = {b: time_upsample(cs, b, gen)
+                              for b in args.k1_batch}
     if args.mul:
         result["mul"] = time_mul(cs, args)
     if args.step:

@@ -3,7 +3,7 @@
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     the build of all eight kernels in ``rsis_tpu_torch/csrc`` (one nvcc
+     the build of all nine kernels in ``rsis_tpu_torch/csrc`` (one nvcc
      per source, all started together; each entry function's registers
      and spills) and of the host RLE library
      (``rsis_tpu_torch/kernels/rle``, g++);
@@ -31,10 +31,15 @@ Phases, each fatal on failure:
      flips at the JAX bench's ranges, the identity, a strong translation
      that clamps at the borders) and at K7_EDGE_GEOMS (row tails, narrow
      stores, C = 1-4, misaligned inputs), twice on the same inputs
-     with bit-identical results;
+     with bit-identical results, and the inter-cell upsample at the
+     forward's (B=32, 4 and --batch), the train step's and the Pascal
+     recipe's decode steps and at UPSAMPLE_EDGE_GEOMS (bf16 bit for bit,
+     fp32 within an ulp, the ring zero, twice on the same inputs with
+     bit-identical results);
   3. the inference path: ``make_forward`` at full width (resnet101, hidden
      128, 9 classes, concat, 512x1024, bfloat16, random weights from
-     --seed) answering a few batches, with K1's and K2's launch counts
+     --seed) answering a few batches, with K1's, K2's and the
+     upsample's launch counts
      read from that run and the outputs held against the port's plain path
      on the card (and, in float32 at T=2, against a tighter tolerance);
   3b. the same with mul skips (the plain decode, whose cells run K8 and
@@ -136,7 +141,8 @@ Phases, each fatal on failure:
      synchronised calls; each kernel's device time (CUDA-graph replay)
      against its plain version's, its bound and, where one exists, the
      PyTorch library call for the same function (K2 in both layouts,
-     beside the two-call interpolate + conv2d yardstick); with --profile,
+     beside the two-call interpolate + conv2d yardstick; the upsample
+     beside ``F.interpolate``); with --profile,
      device time by operation of one forward, one step, a resumed
      trainer run and the Cityscapes evaluation.
 
@@ -237,6 +243,14 @@ K6_EDGE_SHAPES = [(33, 1, 1), (3, 1, 32), (33, 32, 32), (3, 1, 33),
 K7_EDGE_GEOMS = [(1, 1, 1, 3), (2, 3, 7, 1), (1, 5, 9, 4), (2, 1, 513, 3),
                  (1, 4, 513, 4), (3, 6, 9, 3), (1, 2, 64, 1), (2, 3, 40, 2),
                  (2, 5, 40, 4)]
+# the inter-cell upsample's edge shapes ((B, h, C, w), (out_h, out_w)),
+# each in fp32 and bf16, with and without the ring: rows whose bytes are
+# no multiple of 16 (the scalar loads and stores), h = w = 1, out_h =
+# out_w = 1, and rows wider than the staged 48 KB (channel passes, the
+# second one off a 16-byte boundary)
+UPSAMPLE_EDGE_GEOMS = [((1, 3, 5, 7), (5, 13)), ((3, 1, 3, 1), (4, 9)),
+                       ((2, 4, 9, 3), (1, 1)), ((1, 2, 16, 2049), (3, 4097)),
+                       ((2, 5, 3, 2048), (9, 4095))]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 PARALLEL_TIMEOUT = 600             # phase 4d's ranks, seconds
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
@@ -547,6 +561,109 @@ def time_k2(shape, gen) -> dict:
             + head_plan_tag(shape, layout, dtype))
     log(f"  K2 {shape}: interpolate + conv2d (two calls, a yardstick) "
         f"{out['library_ms']:.4f} ms")
+    return out
+
+
+def upsample_shapes(geoms, b: int) -> list:
+    """The inter-cell upsamples of a decode step at the cells ((H, W, C,
+    Cx) each): ((B, h, C, w), (out_h, out_w)), cell i - 1's state to cell
+    i's grid."""
+    return [((b, geoms[i - 1][0], geoms[i - 1][2], geoms[i - 1][1]),
+             geoms[i][:2]) for i in range(1, len(geoms))]
+
+
+def fp32_ulps(got, want) -> float:
+    """The largest |got - want| in fp32 ulps of want, element by
+    element."""
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return ((got - want).abs() / ulp).max().item()
+
+
+def check_upsample(shapes, gen) -> dict:
+    """The inter-cell upsample kernel against its plain version (the two
+    fp32 products) at the given shapes ((B, h, C, w), (out_h, out_w)) with
+    the ring, and at UPSAMPLE_EDGE_GEOMS with and without it: bf16 bit for
+    bit, fp32 within an ulp of each element; the ring all zeros; each
+    launched twice on the same inputs with bit-identical results. Returns
+    the worst fp32 ulps and the bf16 max_abs_err (0)."""
+    from rsis_tpu_torch.ops.upsample import (upsample_rowmajor_kernel,
+                                             upsample_rowmajor_ref)
+    worst = {"fp32_ulps": 0.0, "bf16": 0.0}
+    cases = [(sh, out, True) for sh, out in shapes] + [
+        (sh, out, pad) for sh, out in UPSAMPLE_EDGE_GEOMS
+        for pad in (True, False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for shape, (oh, ow), pad in cases:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            got = upsample_rowmajor_kernel(x, oh, ow, pad)
+            again = upsample_rowmajor_kernel(x, oh, ow, pad)
+            want = upsample_rowmajor_ref(x, oh, ow, pad)
+            torch.cuda.synchronize()
+            name = f"upsample {shape} -> {(oh, ow)} pad {int(pad)} {tag}"
+            if not torch.equal(got, again):
+                raise SystemExit(f"{name}: two launches on the same inputs "
+                                 f"differ")
+            if pad and (got[:, [0, -1]].any() or got[..., [0, -1]].any()):
+                raise SystemExit(f"{name}: the halo ring is not zero")
+            if dtype == torch.bfloat16:
+                err = max_err(got, want)
+                check(f"{name} (bit for bit)", err, 0.0)
+                worst["bf16"] = max(worst["bf16"], err)
+            else:
+                ulps = fp32_ulps(got, want)
+                log(f"  {name}: {ulps:.3f} fp32 ulps (tolerance 1) "
+                    f"{'ok' if ulps <= 1 else 'FAIL'}")
+                if ulps > 1:
+                    raise SystemExit(f"{name}: kernel disagrees with its "
+                                     f"plain version")
+                worst["fp32_ulps"] = max(worst["fp32_ulps"], ulps)
+    return worst
+
+
+def time_upsample(shapes, gen) -> dict:
+    """A decode step's inter-cell upsamples in bf16 (shapes as
+    ``check_upsample``'s, with the ring): device ms of each launch, of the
+    plain version (two fp32 products and their casts), of the yardstick
+    ``F.interpolate(..., mode="bilinear", align_corners=True)`` on the NCHW
+    input without the ring (the port never calls it), and the bound: the
+    input read once and the output written once. "ms" and the rest sum
+    the step's launches."""
+    from rsis_tpu_torch.ops.upsample import (upsample_rowmajor_kernel,
+                                             upsample_rowmajor_ref)
+    F = torch.nn.functional
+    dtype = torch.bfloat16
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bytes": 0, "cells": []}
+    for shape, (oh, ow) in shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        x_nchw = x.permute(0, 2, 1, 3).contiguous()
+        b, h, c, w = shape
+        n_bytes = nbytes(x) + b * (oh + 2) * c * (ow + 2) * x.element_size()
+        # a pass's output element: two products and a sum
+        ops = 3.0 * b * (oh + 2) * c * (w + ow + 2)
+        bms, by = bound_ms(n_bytes, ops, dtype)
+        row = {"shape": list(shape), "out": [oh, ow],
+               "ms": graph_ms(lambda: upsample_rowmajor_kernel(
+                   x, oh, ow, True), iters=20),
+               "plain_ms": graph_ms(lambda: upsample_rowmajor_ref(
+                   x, oh, ow, True), iters=5),
+               "library_ms": graph_ms(lambda: F.interpolate(
+                   x_nchw, size=(oh, ow), mode="bilinear",
+                   align_corners=True), iters=20),
+               "bound_ms": bms, "bound_by": by, "bytes": n_bytes}
+        out["cells"].append(row)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes"):
+            out[key] += row[key]
+        log(f"  upsample {shape} -> {(oh + 2, ow + 2)}: {row['ms']:.4f} ms "
+            f"(plain {row['plain_ms']:.4f}, F.interpolate "
+            f"{row['library_ms']:.4f}, bound {bms:.4f} by {by})")
+    out["bound_by"] = "bytes"
+    log(f"  upsample, a decode step's {len(shapes)} launches: "
+        f"{out['ms']:.4f} ms, {out['bytes'] / out['ms'] / 1e6:.1f} GB/s "
+        f"(plain {out['plain_ms']:.4f}, F.interpolate "
+        f"{out['library_ms']:.4f}, bound {out['bound_ms']:.4f} by bytes)")
     return out
 
 
@@ -1073,9 +1190,11 @@ def kernel_counters() -> dict:
     from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor
     from rsis_tpu_torch.ops.lap import solve_lap_batch
     from rsis_tpu_torch.ops.mask_head import mask_head_fused_kernel
+    from rsis_tpu_torch.ops.upsample import upsample_rowmajor_kernel
     from rsis_tpu_torch.ops.warp import warp_by_coefficients
     return {"fused_cell_rowmajor": fused_cell_rowmajor,
             "mask_head_fused_kernel": mask_head_fused_kernel,
+            "upsample_rowmajor_kernel": upsample_rowmajor_kernel,
             "conv3x3_rowmajor": conv3x3_rowmajor,
             "cell_backward_dgates": fcv.cell_backward_dgates,
             "weight_grad_rowmajor": fcv.weight_grad_rowmajor,
@@ -1135,6 +1254,7 @@ def train_phase(args, out_dir) -> dict:
     n, rep = TRAIN_ITERS, 2 if remat else 1
     want = {"fused_cell_rowmajor": 5 * T * rep * n,
             "mask_head_fused_kernel": T * rep * n,
+            "upsample_rowmajor_kernel": 4 * T * rep * n,
             "conv3x3_rowmajor": 5 * T * n, "cell_backward_dgates": 5 * T * n,
             "weight_grad_rowmajor": 5 * T * n, "solve_lap_batch": n,
             "warp_by_coefficients": n}
@@ -1771,19 +1891,22 @@ def forward_counters() -> dict:
     from rsis_tpu_torch.ops.clstm_step import clstm_step
     from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor
     from rsis_tpu_torch.ops.mask_head import mask_head_fused_kernel
+    from rsis_tpu_torch.ops.upsample import upsample_rowmajor_kernel
     return {"fused_cell_rowmajor": fused_cell_rowmajor,
             "mask_head_fused_kernel": mask_head_fused_kernel,
+            "upsample_rowmajor_kernel": upsample_rowmajor_kernel,
             "clstm_step": clstm_step}
 
 
 def forward_launches(skip_mode: str, T: int, n: int) -> dict:
-    """Launches of n forwards of T steps: K1 and K2 for the channel-
-    separable skips, K8 and K2 for mul."""
+    """Launches of n forwards of T steps: K1, the inter-cell upsample and
+    K2 for the channel-separable skips, K8 and K2 for mul."""
     if skip_mode == "mul":
         return {"fused_cell_rowmajor": 0, "mask_head_fused_kernel": T * n,
-                "clstm_step": 5 * T * n}
+                "upsample_rowmajor_kernel": 0, "clstm_step": 5 * T * n}
     return {"fused_cell_rowmajor": 5 * T * n,
-            "mask_head_fused_kernel": T * n, "clstm_step": 0}
+            "mask_head_fused_kernel": T * n,
+            "upsample_rowmajor_kernel": 4 * T * n, "clstm_step": 0}
 
 
 def mul_forward_phase(args, xs) -> dict:
@@ -3397,6 +3520,15 @@ def main() -> int:
     cell_bwd_ulps = check_cell_backward(train_geoms, tb, gen)
     log(f"  cell backward bf16: worst {cell_bwd_ulps:.3f} bf16 ulps")
     warp_err = check_warp(sorted({8, tb}), gen)
+    # the inter-cell upsample at the forward's, the train step's and the
+    # Pascal recipe's (256x256, B=28) decode steps
+    pascal_geoms = [(256 // 2 ** (5 - i), 256 // 2 ** (5 - i), ch, 0)
+                    for i, ch in enumerate(widths)]
+    up_err = check_upsample(
+        [sh for bb in sorted({32, 4, b}, reverse=True)
+         for sh in upsample_shapes(cell_geoms, bb)]
+        + upsample_shapes(train_geoms, tb)
+        + upsample_shapes(pascal_geoms, 28), gen)
 
     # ---- 3. the inference path -----------------------------------------
     cfg = Config(base_model="resnet101", hidden_size=hidden, num_classes=9,
@@ -3536,6 +3668,7 @@ def main() -> int:
             f"{bms:.4f} by {by})")
     k1_by = bound_ms(k1["bytes"], k1["ops"], dtype)[1]
     k2 = time_k2(head_shape, gen)
+    up = time_upsample(upsample_shapes(cell_geoms, b), gen)
     k8 = time_clstm(k8_geoms, b, gen)
     bwd = time_backward_kernels(train_geoms, tb, gen)
     lap = time_lap(tb, args.train_steps, 20, gen)
@@ -3564,6 +3697,15 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2["rowmajor"]["ms"],
          "plain_ms": k2["rowmajor"]["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+        {"name": "upsample_rowmajor_kernel", "route": "cuda",
+         "source": "rsis_tpu_torch/csrc/upsample.cu",
+         "replaces": "none (rsis_tpu/models/rowmajor_decoder.py:147-150, "
+                     "two einsums left to XLA)",
+         "launches": launches["upsample_rowmajor_kernel"],
+         "max_abs_err": up_err["bf16"], "fp32_ulps": up_err["fp32_ulps"],
+         "ms": up["ms"], "plain_ms": up["plain_ms"],
+         "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
+         "library_ms": up["library_ms"]},
         bwd_row("k3", "conv3x3_rowmajor", "rsis_tpu_torch/csrc/conv3x3.cu",
                 "rsis_tpu/ops/pallas_decode.py:437"),
         bwd_row("k4", "cell_backward_dgates",
@@ -3604,7 +3746,7 @@ def main() -> int:
                        "encoder_ms": enc_ms, "decode_ms_per_step": dec_ms,
                        "forward_ms": fwd_ms, "images_per_s": img_s,
                        "main_err": main_err, "k1_cells": k1["cells"],
-                       "k2": k2,
+                       "k2": k2, "upsample": up,
                        "cell_bwd_bf16_ulps": cell_bwd_ulps,
                        "train": train, "train_batch": tb,
                        "trainer": trainer, "options": options,
@@ -3619,9 +3761,11 @@ def main() -> int:
         f"device times (CUDA-graph replay): K1 and K8 ms are one decode "
         f"step's five launches at B={b}, K2 ms one launch ((B, H, C, W) "
         f"input; its library ms the two-call interpolate + conv2d "
-        f"yardstick); K3, K4 and K5 ms "
+        f"yardstick), the upsample's ms a decode step's four launches at "
+        f"B={b} (its library ms F.interpolate's); K3, K4 and K5 ms "
         f"one decode step's five launches at B={tb}, K6 and K7 ms one "
-        f"launch; launches of K1 and K2 are from the inference path, of K8 "
+        f"launch; launches of K1, K2 and the upsample are from the inference "
+        f"path, of K8 "
         f"from the mul path, of K3-K7 from the train path")
     print(json.dumps({"kernels": kernels}))
     print(card)

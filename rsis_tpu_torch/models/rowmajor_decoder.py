@@ -1,8 +1,9 @@
 """Kernel decode loop in the (B, H, C, W) layout.
 
 Counterpart of ``rsis_tpu/models/rowmajor_decoder.py``
-(``_hoist_cells_rowmajor``, ``_upsample_rowmajor``,
-``rowmajor_decoder_step``, ``decode_sequence_rowmajor``). The math per
+(``_hoist_cells_rowmajor``, ``rowmajor_decoder_step``,
+``decode_sequence_rowmajor``; its ``_upsample_rowmajor`` is
+``ops/upsample.py``'s ``upsample_rowmajor_ref``). The math per
 step is the plain decoder's (``models/decoder.py``), restructured around
 the linearity of the gate conv:
 
@@ -10,21 +11,26 @@ the linearity of the gate conv:
     conv(concat(up, skip, h)) = conv_x(up) + conv_s(skip) + conv_h(h), and
     S = conv_s(skip) + bias is computed once per forward (the "S terms");
   - each cell step is one ``fused_cell_rowmajor`` launch (K1) on the
-    upsampled previous cell's state, whose zero halo rides along as zero
-    rows and columns of the interpolation matrices;
+    upsampled previous cell's state, written with its zero halo ring by
+    one launch of ``csrc/upsample.cu`` (the ring is the zero first and last
+    row of the plain version's interpolation matrices);
   - the mask head is one ``mask_head_fused_kernel`` launch (K2) per step.
 
 The S terms, h and c are stored in the compute dtype between cells and
-steps; the upsample products accumulate in fp32 and are cast after each
-product, as the reference does. Under autograd the S terms' cotangent is
-summed over the T steps in their dtype, as the reference sums it.
+steps; the upsample rounds its row pass and its column pass each to that
+dtype, as the reference's two fp32 products and casts do (bit for bit in
+bf16). Under autograd the S terms' cotangent is summed over the T steps
+in their dtype, as the reference sums it.
 
 The same loop trains (the counterpart of ``rowmajor_decoder_step``'s
-differentiable path): the cells run through ``FusedCellFunction`` and the
-head through ``MaskHeadFunction``, whose backwards are kernels too, while
-the S-term hoist, the inter-cell upsample and the global max stay plain
-autograd (``amax`` splits tied cotangents evenly, as ``jnp.max`` does).
-plain=True runs the kernels' plain versions under autograd instead.
+differentiable path): the cells run through ``FusedCellFunction``, the
+head through ``MaskHeadFunction`` and the upsample through
+``UpsampleFunction``. The cells' and the head's backwards are kernels
+too; the upsample's backward is the pullback of its plain version
+(``upsample_rowmajor_ref``, two fp32 products) through autograd, and the
+S-term hoist and the global max stay plain autograd (``amax`` splits tied
+cotangents evenly, as ``jnp.max`` does). plain=True runs the kernels'
+plain versions under autograd instead.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch.nn.functional as F
 from ..ops.fused_cell import fused_cell_rowmajor_ref, pack_cell_weights
 from ..ops.fused_cell_vjp import FusedCellFunction
 from ..ops.mask_head import MaskHeadFunction, mask_head_ref
-from ..ops.upsample import interp_matrix
+from ..ops.upsample import UpsampleFunction, upsample_rowmajor_ref
 from ..utils.profiling import span
 from .decoder import RSISDecoder, decoder_widths
 
@@ -94,23 +100,6 @@ def _hoist_cells_rowmajor(decoder: RSISDecoder,
     return cells
 
 
-def _upsample_rowmajor(x: torch.Tensor, out_h: int, out_w: int,
-                       pad: bool = False) -> torch.Tensor:
-    """(B, H, C, W) -> (B, out_h, C, out_w), align-corners bilinear.
-
-    pad=True returns the (out_h + 2, out_w + 2) tensor with a zero halo
-    ring, the x_pad the cell kernel takes: the pad is a zero first and last
-    row of each interpolation matrix. Each product accumulates in fp32 and
-    is cast to the input dtype."""
-    b, h, c, w = x.shape
-    dtype = x.dtype
-    rm = interp_matrix(h, out_h, dtype, x.device, pad=pad)
-    cm = interp_matrix(w, out_w, dtype, x.device, pad=pad)
-    y = torch.matmul(rm, x.reshape(b, h, c * w).float()).to(dtype)
-    y = torch.matmul(y.reshape(b, -1, c, w).float(), cm.t()).to(dtype)
-    return y
-
-
 def init_carry_rowmajor(skips: Sequence[torch.Tensor], hidden_size: int,
                         dtype: torch.dtype):
     """Zero (h, c) pyramid, (B, H, C, W) per cell, on the skips' device."""
@@ -135,6 +124,11 @@ def rowmajor_decoder_step(decoder: RSISDecoder, cells, carry,
     neighbours' rows, the upsample reads the slab's rows of the global
     interpolation, and the side features are maxed over its ranks."""
     cell_fn = fused_cell_rowmajor_ref if plain else _fused_cell
+    if slab is not None:
+        upsample = slab.upsample_rowmajor
+    else:
+        upsample = (upsample_rowmajor_ref if plain
+                    else UpsampleFunction.apply)
     side_feats, new_carry = [], []
     h = None
     for i, cell in enumerate(cells):
@@ -142,9 +136,7 @@ def rowmajor_decoder_step(decoder: RSISDecoder, cells, carry,
         x_pad = None
         if i > 0:
             with span("rsis.decode.upsample"):
-                x_pad = (_upsample_rowmajor if slab is None
-                         else slab.upsample_rowmajor)(
-                    h, h_prev.shape[1], h_prev.shape[3], pad=True)
+                x_pad = upsample(h, h_prev.shape[1], h_prev.shape[3], True)
         args = (h_prev, x_pad, c_prev, cell["s"], cell["wt"])
         if slab is None:
             h, c = cell_fn(*args, cx=cell["cx"], ch=cell["ch"])

@@ -42,3 +42,9 @@ def _bound_xla_cpu_jit_accumulation():
     ``pytest tests/ -q`` single-process run reliable."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; the test skips without one "
+        "(run on the card: python -m pytest --noconftest -m cuda FILE)")

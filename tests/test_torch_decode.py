@@ -28,6 +28,7 @@ from rsis_tpu_torch.models import rowmajor_decoder as trm
 from rsis_tpu_torch.models.decoder import RSISDecoder
 from rsis_tpu_torch.models.rsis import decode_sequence
 from rsis_tpu_torch.models.weights import decoder_state_dict
+from rsis_tpu_torch.ops.upsample import upsample_rowmajor_ref
 from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
@@ -99,8 +100,8 @@ def test_upsample_pad_matches_unpadded():
     fp32 summation order: the products have other shapes)."""
     x = torch.from_numpy(
         np.random.default_rng(0).normal(size=(2, 3, 4, 5)).astype(np.float32))
-    plain = trm._upsample_rowmajor(x, 6, 10)
-    padded = trm._upsample_rowmajor(x, 6, 10, pad=True)
+    plain = upsample_rowmajor_ref(x, 6, 10)
+    padded = upsample_rowmajor_ref(x, 6, 10, pad=True)
     assert tuple(padded.shape) == (2, 8, 4, 12)
     np.testing.assert_allclose(padded[:, 1:-1, :, 1:-1].numpy(),
                                plain.numpy(), atol=1e-6)
