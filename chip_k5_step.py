@@ -461,14 +461,15 @@ def _cell_plans(b, h, w, ch, cx, kind):
                 continue
             plan = fc.CellPlan(True, wm, wj, wpm, wpn, rows, tw, cc, st)
             units, n_ct = plan.units(b, h, w), ch // ct
-            if plan.smem_bytes(ch, cx, kind) > fc.SMEM_LIMIT:
+            if plan.smem_bytes(ch, cx, kind, w=w) > fc.SMEM_LIMIT:
                 continue
             if units * n_ct < fc.SM_COUNT:
                 yield dataclasses.replace(
                     plan, groups=units, splits=fc._divisor_at_most(
                         plan.chunks(ch, cx), fc.SM_COUNT // (units * n_ct)))
                 continue
-            for per_sm in (1, 2) if plan.two_per_sm(ch, cx, kind) else (1,):
+            for per_sm in ((1, 2) if plan.two_per_sm(ch, cx, kind, w=w)
+                           else (1,)):
                 yield dataclasses.replace(plan, per_sm=per_sm, groups=min(
                     units, max(1, per_sm * fc.SM_COUNT // n_ct)))
 

@@ -9,7 +9,10 @@ Phases, each fatal on failure:
      (``rsis_tpu_torch/kernels/rle``, g++);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, in float32 (TF32 off) and bfloat16:
-     the forward kernel K1 at the inference geometry, the mask head K2 in
+     the forward kernel K1 at the inference geometry and at the CVPPP
+     recipe's five cells (400x400: 13 to 200 wide, four on the staged
+     loop's edge variant) at B=--batch and 256, each launch's plan read
+     back from ``fused_cell_rowmajor.mma_launches``, the mask head K2 in
      both its layouts ((B, H, C, W) of the concat decode, (B, C, H, W) of
      the mul decode) at the head's shape at B=32, 4 and --batch, at the
      train step's head shape and at edge shapes of its launch plan (twice
@@ -40,8 +43,9 @@ Phases, each fatal on failure:
      128, 9 classes, concat, 512x1024, bfloat16, random weights from
      --seed) answering a few batches, with K1's, K2's and the
      upsample's launch counts
-     read from that run and the outputs held against the port's plain path
-     on the card (and, in float32 at T=2, against a tighter tolerance);
+     read from that run (every K1 launch on the tensor cores) and the
+     outputs held against the port's plain path on the card (and, in
+     float32 at T=2, against a tighter tolerance);
   3b. the same with mul skips (the plain decode, whose cells run K8 and
      whose head runs K2 on the NCHW state): K8 launched 5 T times and K2
      T times a forward, K1 never, the outputs held against the plain
@@ -53,6 +57,11 @@ Phases, each fatal on failure:
      checkpoints (concat and mul) written under build/ from --seed: their
      outputs, finite scores and launches per forward checked, wall time
      per image and the forward's share of it;
+  3d. the CVPPP recipe's forward: ``make_forward`` at full width with 2
+     classes at 400x400 (bf16, --batch, --steps, --batches), K1 5 T, the
+     upsample 4 T and K2 T launches a forward, every K1 launch on the
+     tensor cores, the outputs held against the plain path, images per
+     second;
   4. the training path: ``make_train_step`` at full width (the same model,
      256x512, gt_maxseqlen 20, bfloat16, device augmentation on as in the
      JAX bench, all three step flags on) on one synthetic uint8 wire batch
@@ -142,7 +151,8 @@ Phases, each fatal on failure:
      against its plain version's, its bound and, where one exists, the
      PyTorch library call for the same function (K2 in both layouts,
      beside the two-call interpolate + conv2d yardstick; the upsample
-     beside ``F.interpolate``); with --profile,
+     beside ``F.interpolate``; K1's edge variant at the CVPPP recipe's
+     four edge cells at B=256); with --profile,
      device time by operation of one forward, one step, a resumed
      trainer run and the Cityscapes evaluation.
 
@@ -204,11 +214,18 @@ K3_EDGE_GEOMS = [((6, 24, 8, 0), 1), ((10, 40, 8, 16), 2),
 # (the forward's five epilogue planes, the backward's seven) each warp
 # tile, ring depth, chunk width (C = 8: the narrow chunk), channel tiling
 # and split of cell_plan, the weight chunk resident and streamed, H and W
-# off the unit, W below one unit, B=1, Cx=0
+# off the unit, W below one unit, B=1, Cx=0; then W not a multiple of 8
+# (K1's edge variant, K4's FMA loop): odd W (x_pad's rows at odd phases)
+# and even, W below 8, parts and one part, the narrow chunk, several
+# channel tiles
 K1_EDGE_GEOMS = [((1, 8, 8, 0), 1), ((9, 40, 8, 16), 2),
                  ((3, 24, 32, 8), 1), ((1, 8, 64, 0), 1),
                  ((17, 136, 64, 0), 2), ((17, 136, 32, 0), 3),
-                 ((2, 136, 64, 8), 1), ((17, 40, 32, 8), 3)]
+                 ((2, 136, 64, 8), 1), ((17, 40, 32, 8), 3),
+                 ((3, 13, 128, 0), 1), ((7, 25, 64, 32), 2),
+                 ((5, 50, 32, 64), 3), ((9, 100, 16, 32), 2),
+                 ((3, 21, 8, 16), 2), ((4, 5, 16, 8), 1),
+                 ((11, 36, 64, 0), 3)]
 # K8's edge shapes ((H, W, Cx, C), B): each warp tile, ring depth, chunk
 # width (C = 8: the narrow chunk), channel tiling and split of
 # cell_plan(..., kind="step"), the weight chunk resident and streamed,
@@ -252,6 +269,9 @@ UPSAMPLE_EDGE_GEOMS = [((1, 3, 5, 7), (5, 13)), ((3, 1, 3, 1), (4, 9)),
                        ((2, 4, 9, 3), (1, 1)), ((1, 2, 16, 2049), (3, 4097)),
                        ((2, 5, 3, 2048), (9, 4095))]
 TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
+LEAVES_HW = (400, 400)             # the CVPPP recipe's input (imsize 400)
+LEAVES_CLASSES = 2
+LEAVES_BATCH = 256                 # the CVPPP inference benchmark's batch
 PARALLEL_TIMEOUT = 600             # phase 4d's ranks, seconds
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
@@ -731,6 +751,74 @@ def check_cell_kernels(geom, b, dtype, gen, label="") -> dict:
             if dtype == torch.bfloat16:
                 errs[key] = max(errs[key], err)
     return errs
+
+
+def check_k1_cells(geoms, b, dtype, gen, label="") -> float:
+    """K1 against its plain version at each cell geometry (H, W, C, Cx)
+    (fp32: FP32_TOL; bf16: one ulp of each output's max), launched twice
+    on the same inputs with bit-identical results, each launch counted in
+    ``mma_launches`` where its plan takes the tensor cores. Returns the
+    largest error."""
+    from rsis_tpu_torch.ops.fused_cell import (cell_plan,
+                                               fused_cell_rowmajor,
+                                               fused_cell_rowmajor_ref)
+    tag = "fp32" if dtype == torch.float32 else "bf16"
+    worst = 0.0
+    for i, geom in enumerate(geoms):
+        hh, ww, ch, cx = geom
+        ops = cell_inputs(geom, b, dtype, gen)
+        mma = fused_cell_rowmajor.mma_launches
+        h_k, c_k = fused_cell_rowmajor(*ops, cx=cx, ch=ch)
+        h_a, c_a = fused_cell_rowmajor(*ops, cx=cx, ch=ch)
+        h_r, c_r = fused_cell_rowmajor_ref(*ops, cx=cx, ch=ch)
+        torch.cuda.synchronize()
+        name = (f"K1 {label}cell{i} {geom} B={b} {tag} "
+                + cell_plan_tag(geom, b, dtype))
+        got_mma = fused_cell_rowmajor.mma_launches - mma
+        want_mma = 2 * cell_plan(b, hh, ww, ch, cx, dtype).mma
+        if got_mma != want_mma:
+            raise SystemExit(f"{name}: {got_mma} tensor-core launches "
+                             f"counted, not {want_mma}")
+        for nm, got, again, want in (("h", h_k, h_a, h_r),
+                                     ("c", c_k, c_a, c_r)):
+            err = max_err(got, want)
+            check(f"{name} {nm}", err, tol_for(dtype, want))
+            if not torch.equal(got, again):
+                raise SystemExit(f"{name} {nm}: two launches on the same "
+                                 f"inputs differ")
+            worst = max(worst, err)
+    return worst
+
+
+def time_k1_cells(geoms, b, gen, label="") -> dict:
+    """K1's device time (CUDA-graph replay) in bf16 at each cell geometry
+    at B=b against its plain version's and its bound; the sums over the
+    cells and one row a cell."""
+    from rsis_tpu_torch.ops.fused_cell import (fused_cell_rowmajor,
+                                               fused_cell_rowmajor_ref)
+    dtype = torch.bfloat16
+    out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
+           "ops": 0.0, "cells": []}
+    for i, geom in enumerate(geoms):
+        hh, ww, ch, cx = geom
+        ops_in = cell_inputs(geom, b, dtype, gen)
+        kw = {"cx": cx, "ch": ch}
+        ms = graph_ms(lambda: fused_cell_rowmajor(*ops_in, **kw), iters=20)
+        pms = graph_ms(lambda: fused_cell_rowmajor_ref(*ops_in, **kw),
+                       iters=5)
+        n_b = nbytes(*ops_in) + 2 * nbytes(ops_in[0])
+        n_ops = 2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww
+        bms, by = bound_ms(n_b, n_ops, dtype)
+        out["cells"].append({"cell": i, "geom": list(geom), "batch": b,
+                             "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                             "bound_by": by})
+        for key, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
+                         ("bytes", n_b), ("ops", n_ops)):
+            out[key] += val
+        log(f"  K1 {label}cell{i} {geom} B={b}: {ms:.4f} ms (plain "
+            f"{pms:.4f}, bound {bms:.4f} by {by})")
+    out["bound_by"] = bound_ms(out["bytes"], out["ops"], dtype)[1]
+    return out
 
 
 def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
@@ -1800,6 +1888,15 @@ def time_lap(b: int, T: int, n: int, gen) -> dict:
             "ns_per_step": ns_step}
 
 
+def concat_geoms(height: int, width: int, widths) -> list:
+    """(H, W, C, Cx) of the five cells of the concat decode at one input
+    size: the encoder halves each side rounding up (a 400-wide input gives
+    cells 13, 25, 50, 100 and 200 wide), cell i reads the upsampled state
+    of cell i - 1 (width widths[i - 1])."""
+    return [(-(-height // 2 ** (5 - i)), -(-width // 2 ** (5 - i)), ch,
+             widths[i - 1] if i else 0) for i, ch in enumerate(widths)]
+
+
 def mul_geoms(height: int, width: int, widths) -> list:
     """(H, W, Cx, C) of the five cells of the mul decode at one input
     size: cell 0 reads the coarsest skip (width widths[0]), cell i the
@@ -1977,6 +2074,79 @@ def mul_forward_phase(args, xs) -> dict:
             "mul_forward")
     return {"launches": launches, "err": err, "forward_ms": fwd_ms,
             "images_per_s": img_s, "profile": profile}
+
+
+def leaves_forward_phase(args) -> dict:
+    """Phase 3d: ``make_forward`` on the CVPPP recipe's model (resnet101,
+    hidden 128, 2 classes, concat, 400x400, bf16, random weights from
+    --seed) answering --batches batches of --batch: K1 5 T, the upsample
+    4 T and K2 T launches a forward, every K1 launch on the tensor cores
+    (``fused_cell_rowmajor.mma_launches``; cells 0-3, 13 to 100 wide, on
+    the staged loop's edge variant), the outputs held against the plain
+    path on the card and the images per second."""
+    from rsis_tpu_torch import Config
+    from rsis_tpu_torch.evals.forward import make_forward
+    from rsis_tpu_torch.models.rsis import build_models, forward
+    from rsis_tpu_torch.ops.fused_cell import fused_cell_rowmajor
+
+    T, b, n = args.steps, args.batch, args.batches
+    height, width = LEAVES_HW
+    cfg = Config(base_model="resnet101", hidden_size=128,
+                 num_classes=LEAVES_CLASSES, skip_mode="concat",
+                 maxseqlen=T, compute_dtype="bfloat16")
+    weights = fresh_weights(cfg, args.seed)
+    fwd = make_forward(cfg, T=T)
+    gen = cuda_generator(args.seed)
+    xs = [torch.randn(b, height, width, 3, generator=gen, device="cuda")
+          for _ in range(n)]
+    counters = forward_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    fused_cell_rowmajor.mma_launches = 0
+    t0 = time.perf_counter()
+    outs = [fwd(weights, x) for x in xs]
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    mma = fused_cell_rowmajor.mma_launches
+    log(f"leaves path: {n} batches of {b} at {height}x{width}, T={T}, bf16, "
+        f"{t_run:.2f} s (first call included); launches {launches}, K1 on "
+        f"the tensor cores {mma}")
+    want = forward_launches("concat", T, n)
+    if launches != want:
+        raise SystemExit(f"leaves launch counts {launches} != expected "
+                         f"{want}")
+    if mma != 5 * T * n:
+        raise SystemExit(f"leaves path: {mma} K1 launches on the tensor "
+                         f"cores, not {5 * T * n}")
+    want_shapes = ((b, T, height, width), (b, T, LEAVES_CLASSES), (b, T, 1))
+    shapes = tuple(tuple(t.shape) for t in outs[-1])
+    if shapes != want_shapes:
+        raise SystemExit(f"leaves output shapes {shapes} != {want_shapes}")
+    if not all(torch.isfinite(t.float()).all() for t in outs[-1]):
+        raise SystemExit("non-finite leaves output")
+
+    # the same weights through the plain path on the card, to the concat
+    # check's limit (h and c round to bf16 at every cell in both paths)
+    enc_p, dec_p = build_models(cfg)
+    enc_p.load_state_dict(weights[0])
+    dec_p.load_state_dict(weights[1])
+    enc_p = enc_p.to("cuda", torch.bfloat16)
+    dec_p = dec_p.to("cuda")
+    x_nchw = xs[-1].permute(0, 3, 1, 2).contiguous()
+    plain = forward(cfg, enc_p, dec_p, x_nchw, T=T, plain=True)
+    err = {}
+    for nm, got, ref in zip(("masks", "class_probs", "stops"), outs[-1],
+                            plain):
+        err[nm] = max_err(got, ref)
+        check(f"leaves path vs plain path, {nm}", err[nm], 8 * BF16_ULP)
+    del plain, enc_p, dec_p
+    fwd_ms = cuda_ms(lambda: fwd(weights, xs[-1]), iters=3)
+    img_s = b / (fwd_ms / 1e3)
+    log(f"leaves forward T={T} {fwd_ms:.3f} ms/batch = {img_s:.2f} img/s "
+        f"(B={b}, bf16; CUDA events around whole calls)")
+    return {"launches": launches, "mma_launches": mma, "err": err,
+            "forward_ms": fwd_ms, "images_per_s": img_s}
 
 
 def blob_scene(seed, size, blobs):
@@ -3453,10 +3623,9 @@ def main() -> int:
     hidden, height, width = 128, 512, 1024
     widths = decoder_widths(hidden)
     # (H, W, C, Cx) of the five cells and the head input at this geometry
-    cell_geoms = []
-    for i, ch in enumerate(widths):
-        hh, ww = height // 2 ** (5 - i), width // 2 ** (5 - i)
-        cell_geoms.append((hh, ww, ch, widths[i - 1] if i else 0))
+    cell_geoms = concat_geoms(height, width, widths)
+    # the CVPPP recipe's five cells, four of them on K1's edge variant
+    leaves_geoms = concat_geoms(*LEAVES_HW, widths)
     head_shape = (b, cell_geoms[-1][0], widths[-1], cell_geoms[-1][1])
     # (H, W, Cx, C) of the mul decode's five cells (K8)
     k8_geoms = mul_geoms(height, width, widths)
@@ -3474,31 +3643,16 @@ def main() -> int:
     k1_err = k4_edge_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for i, geom in enumerate(cell_geoms):
-            ops = cell_inputs(geom, b, dtype, gen)
-            h_k, c_k = fused_cell_rowmajor(*ops, cx=geom[3], ch=geom[2])
-            h_a, c_a = fused_cell_rowmajor(*ops, cx=geom[3], ch=geom[2])
-            h_r, c_r = fused_cell_rowmajor_ref(*ops, cx=geom[3], ch=geom[2])
-            torch.cuda.synchronize()
-            name = f"K1 cell{i} {geom} {tag} " + cell_plan_tag(geom, b,
-                                                               dtype)
-            for nm, got, again, want in (("h", h_k, h_a, h_r),
-                                         ("c", c_k, c_a, c_r)):
-                err = max_err(got, want)
-                tol = (FP32_TOL if dtype == torch.float32 else
-                       BF16_ULP * want.float().abs().max().item())
-                check(f"{name} {nm}", err, tol)
-                if not torch.equal(got, again):
-                    raise SystemExit(f"{name} {nm}: two launches on the "
-                                     f"same inputs differ")
-                if dtype == torch.bfloat16:
-                    k1_err = max(k1_err, err)
+        err = check_k1_cells(cell_geoms, b, dtype, gen)
+        if dtype == torch.bfloat16:
+            k1_err = max(k1_err, err)
         # K1 and K4 at the edges of their plans (K1_EDGE_GEOMS)
         for geom, bb in K1_EDGE_GEOMS:
             errs = check_cell_kernels(geom, bb, dtype, gen, "edge ")
             k1_err = max(k1_err, errs["k1"])
             k4_edge_err = max(k4_edge_err, errs["k4"])
-        # widths that are not multiples of 8 take K1's FMA loop in bf16 too
+        # channel widths that are not multiples of 8 take K1's FMA loop in
+        # bf16 too (the odd W of K1_EDGE_GEOMS take its edge variant)
         geom = (32, 64, 4, 12)
         ops = cell_inputs(geom, 2, dtype, gen)
         for nm, got, want in zip(
@@ -3507,6 +3661,10 @@ def main() -> int:
             tol = (FP32_TOL if dtype == torch.float32 else
                    BF16_ULP * want.float().abs().max().item())
             check(f"K1 {geom} B=2 {tag} {nm}", max_err(got, want), tol)
+    # the CVPPP recipe's cells at --batch and at its benchmark's batch
+    for bb in sorted({b, LEAVES_BATCH}):
+        k1_err = max(k1_err, check_k1_cells(leaves_geoms, bb, torch.bfloat16,
+                                            gen, "leaves "))
     k2_err = check_k2([(bb,) + head_shape[1:] for bb in
                        sorted({32, 4, b}, reverse=True)]
                       + [(tb, TRAIN_HW[0] // 2) + head_shape[2:3]
@@ -3541,6 +3699,7 @@ def main() -> int:
     counters = forward_counters()
     for fn in counters.values():
         fn.launches = 0
+    fused_cell_rowmajor.mma_launches = 0
     t0 = time.perf_counter()
     outs = [fwd(weights, x) for x in xs]
     torch.cuda.synchronize()
@@ -3548,10 +3707,15 @@ def main() -> int:
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"main path: {args.batches} batches of {b} at {height}x{width}, "
         f"T={args.steps}, bf16, {t_main:.2f} s (first call included); "
-        f"launches {launches}")
+        f"launches {launches}, K1 on the tensor cores "
+        f"{fused_cell_rowmajor.mma_launches}")
     want = forward_launches("concat", args.steps, args.batches)
     if launches != want:
         raise SystemExit(f"launch counts {launches} != expected {want}")
+    if fused_cell_rowmajor.mma_launches != want["fused_cell_rowmajor"]:
+        raise SystemExit(f"{fused_cell_rowmajor.mma_launches} K1 launches "
+                         f"on the tensor cores, not every one of "
+                         f"{want['fused_cell_rowmajor']}")
 
     masks, clss, stops = outs[-1]
     shapes = (tuple(masks.shape), tuple(clss.shape), tuple(stops.shape))
@@ -3601,9 +3765,11 @@ def main() -> int:
               1e-3)
     del enc32, dec32, got32, ref32
 
-    # ---- 3b, 3c. the mul forward and the evaluation entry points --------
+    # ---- 3b, 3c, 3d. the mul forward, the evaluation entry points and
+    # the CVPPP recipe's forward ------------------------------------------
     mul = mul_forward_phase(args, xs)
     del xs
+    leaves = leaves_forward_phase(args)
     import shutil
     import tempfile
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3645,28 +3811,11 @@ def main() -> int:
         f"(B={b}, bf16; CUDA events around whole calls, idle gaps "
         f"included)")
 
-    dtype = torch.bfloat16
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
-          "ops": 0.0, "cells": []}
-    for i, geom in enumerate(cell_geoms):
-        hh, ww, ch, cx = geom
-        ops_in = cell_inputs(geom, b, dtype, gen)
-        kw = {"cx": cx, "ch": ch}
-        ms = graph_ms(lambda: fused_cell_rowmajor(*ops_in, **kw), iters=20)
-        pms = graph_ms(lambda: fused_cell_rowmajor_ref(*ops_in, **kw),
-                       iters=5)
-        n_b = nbytes(*ops_in) + 2 * nbytes(ops_in[0])
-        n_ops = 2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww
-        bms, by = bound_ms(n_b, n_ops, dtype)
-        k1["cells"].append({"cell": i, "geom": list(geom), "ms": ms,
-                            "plain_ms": pms, "bound_ms": bms,
-                            "bound_by": by})
-        for key, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
-                         ("bytes", n_b), ("ops", n_ops)):
-            k1[key] += val
-        log(f"  K1 cell{i} {geom}: {ms:.4f} ms (plain {pms:.4f}, bound "
-            f"{bms:.4f} by {by})")
-    k1_by = bound_ms(k1["bytes"], k1["ops"], dtype)[1]
+    k1 = time_k1_cells(cell_geoms, b, gen)
+    # the edge variant: the CVPPP recipe's four cells whose W is not a
+    # multiple of 8, at its benchmark's batch
+    k1_edge = time_k1_cells([g for g in leaves_geoms if g[1] % 8],
+                            LEAVES_BATCH, gen, "leaves ")
     k2 = time_k2(head_shape, gen)
     up = time_upsample(upsample_shapes(cell_geoms, b), gen)
     k8 = time_clstm(k8_geoms, b, gen)
@@ -3689,7 +3838,11 @@ def main() -> int:
          "replaces": "rsis_tpu/ops/pallas_decode.py:572",
          "launches": launches["fused_cell_rowmajor"],
          "max_abs_err": k1_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None, "edge_ms": k1_edge["ms"],
+         "edge_plain_ms": k1_edge["plain_ms"],
+         "edge_bound_ms": k1_edge["bound_ms"],
+         "edge_bound_by": k1_edge["bound_by"], "edge_batch": LEAVES_BATCH},
         {"name": "mask_head_fused_kernel", "route": "cuda",
          "source": "rsis_tpu_torch/csrc/mask_head.cu",
          "replaces": "rsis_tpu/ops/pallas_mask_head.py:336",
@@ -3746,6 +3899,7 @@ def main() -> int:
                        "encoder_ms": enc_ms, "decode_ms_per_step": dec_ms,
                        "forward_ms": fwd_ms, "images_per_s": img_s,
                        "main_err": main_err, "k1_cells": k1["cells"],
+                       "k1_edge_cells": k1_edge["cells"], "leaves": leaves,
                        "k2": k2, "upsample": up,
                        "cell_bwd_bf16_ulps": cell_bwd_ulps,
                        "train": train, "train_batch": tb,
@@ -3759,7 +3913,9 @@ def main() -> int:
                        "evals": evals, "kernels": kernels}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"device times (CUDA-graph replay): K1 and K8 ms are one decode "
-        f"step's five launches at B={b}, K2 ms one launch ((B, H, C, W) "
+        f"step's five launches at B={b} (K1's edge ms the CVPPP recipe's "
+        f"four edge-variant launches at B={LEAVES_BATCH}), K2 ms one "
+        f"launch ((B, H, C, W) "
         f"input; its library ms the two-call interpolate + conv2d "
         f"yardstick), the upsample's ms a decode step's four launches at "
         f"B={b} (its library ms F.interpolate's); K3, K4 and K5 ms "

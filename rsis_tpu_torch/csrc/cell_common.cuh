@@ -19,7 +19,8 @@
 //
 // Two main loops:
 //   - the staged loop (cell_staged_kernel; K1, K4 and K8 in bf16 with C,
-//     Cx and W multiples of 8, every cell at hidden 128): a block owns a
+//     Cx and W multiples of 8, every cell at hidden 128; K1 also at any W,
+//     the edge variant below): a block owns a
 //     unit of rows x tw pixels and a tile of Ct hidden channels with all
 //     four of their gates; the weight streams once per unit through shared
 //     memory in K-chunks of nine taps x cc channels of x or of h, beside
@@ -506,13 +507,28 @@ cudaError_t launch_cell_fma_loop(const void* h_prev, const void* x_pad,
 // RowMajorLayout's x_pad rows from their 16-byte boundary and h_prev's
 // (B, H, C, W) rows, or NchwLayout's x and h_prev rows (B, Cin, H, W),
 // both like h_prev's, with a zero SAME halo.
+//
+// The edge variant (kEdge; K1 where W is not a multiple of 8, as the
+// CVPPP recipe's 13-, 25-, 50- and 100-wide cells are): rows then start
+// at any 2-byte boundary and end inside a 16-byte group. Every row the
+// block stages, x_pad's and h_prev's as the epilogue's planes, is copied
+// from the 16-byte boundary at or before its first element, with the
+// tensor's end bounding the last copy, and read at its phase (the first
+// element's place in that group) by 16-bit loads: the transposition takes
+// h's columns outside 0 .. W - 1 as zero (the SAME halo; the copies hold
+// the neighbouring rows' values there), and the epilogue reads its planes
+// element by element, writes each output over its own input element and
+// stores the outputs' rows element by element. The aligned kernels are
+// untouched by it.
 struct CellPlan {
   int warps_m, warps_n, rows, tw, cc, stages, splits, groups;
 };
 
 // Shared-memory layout of one block, in bf16 elements: the ring's raw
 // input rows, the weight slots (one when a block has one chunk: it
-// stays), the transposed halo, the epilogue's planes (none with parts),
+// stays), the transposed halo, the epilogue's planes (none with parts;
+// in the edge variant each of the unit's rows takes tw + 8 elements, its
+// copies from the 16-byte boundary),
 // 8 elements of trash for stmatrix rows past the halo, the mbarrier of
 // the planes' copies and, for an epilogue with a bias, its `bias` fp32
 // values. Every region
@@ -521,12 +537,14 @@ struct CellPlan {
 struct CellSmem {
   int rs, ks, cs, twp, os, raw, wgt, wslots, halo, epi, stages, bias;
   __host__ __device__ CellSmem(const CellPlan& p, int ct, int cps,
-                               int planes, int bias_floats = 0) {
+                               int planes, int bias_floats = 0,
+                               bool edge = false) {
     rs = p.tw + 24;   // raw row: h pixels x0 - 8 .. x0 + tw + 15
     ks = 9 * p.cc + ((9 * p.cc / 8) % 2 ? 16 : 8);   // weight row
     cs = p.cc + ((p.cc / 8) % 2 ? 0 : 8);            // halo row
     twp = p.tw + 2;   // halo rows per staged input row: padded columns
-    os = p.rows * p.tw + 8;   // epilogue row: the unit's pixels
+    // epilogue row: the unit's pixels (edge: rows of tw + 8)
+    os = p.rows * (edge ? p.tw + 8 : p.tw) + 8;
     raw = (p.rows + 2) * p.cc * rs;
     wgt = 4 * ct * ks;
     wslots = cps == 1 ? 1 : p.stages;
@@ -573,8 +591,8 @@ template <typename Epi>
 struct EpiBias<Epi, std::void_t<decltype(Epi::kBias)>>
     : std::integral_constant<bool, Epi::kBias> {};
 
-template <int WM, int J, bool kNarrow, int kBlocks, typename Layout,
-          typename Epi>
+template <int WM, int J, bool kNarrow, int kBlocks, bool kEdge,
+          typename Layout, typename Epi>
 __global__ void __launch_bounds__(kThreads, kBlocks)
 cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
                    const __nv_bfloat16* __restrict__ x_pad,
@@ -584,12 +602,14 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
   using bf16 = __nv_bfloat16;
   constexpr bool kNchw = std::is_same<Layout, NchwLayout>::value;
   constexpr bool kBias = EpiBias<Epi>::value;
+  static_assert(!kEdge || !kNchw, "the edge variant reads (B, H, C, W)");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ct = 8 * J * p.warps_n;
   const int cc = p.cc;
   const int nxc = Cx / cc;                      // x chunks, then h chunks
   const int cps = (Cx + C) / cc / p.splits;     // chunks a block walks a unit
-  const CellSmem L(p, ct, cps, epi_planes<Epi>(), kBias ? 4 * ct : 0);
+  const CellSmem L(p, ct, cps, epi_planes<Epi>(), kBias ? 4 * ct : 0,
+                   kEdge);
   bf16* raw0 = reinterpret_cast<bf16*>(smem_raw);
   bf16* wgt0 = raw0 + L.stages * L.raw;
   bf16* halo = wgt0 + L.wslots * L.wgt;
@@ -644,6 +664,15 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
   auto x_row = [&](int b, int py, int ch) {
     return ((long long)(b * (H + 2) + py) * Cx + ch) * (W + 2);
   };
+  // the edge variant: the byte address of the first element a staged row
+  // needs (x_pad's padded column x0, h's column x0 - 1: both the halo's
+  // column 0)
+  auto edge_first = [&](bool is_x, int b, int r, int y0, int x0, int ch) {
+    return is_x ? (long long)(size_t)x_pad + 2 * (x_row(b, y0 + r, ch) + x0)
+                : (long long)(size_t)h_prev +
+                      2 * (((long long)(b * H + y0 + r - 1) * C + ch) * W +
+                           x0 - 1);
+  };
 
   // cp.async of stage k into ring slot k % stages: raw[(R + 2) rows][cc]
   // [rs] holds x_pad's rows from the 16-byte boundary (tw / 8 + 1 copies,
@@ -651,7 +680,7 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
   // 8 + 2 copies, zero outside the image; NchwLayout's x rows too); the
   // weight slot [4 Ct][ks] the chunk's columns of the block's weight rows,
   // gate-major, tap-major
-  const int qx = tw / 8 + 1;
+  const int qx = kEdge ? tw / 8 + 2 : tw / 8 + 1;
   const int qh = tw / 8 + 2;
   const Walk w_x(threadIdx.x, blockDim.x, qx, cc);
   const Walk w_h(threadIdx.x, blockDim.x, qh, cc);
@@ -664,7 +693,26 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
     const bool is_x = chunk < nxc;
     const int ch0 = (is_x ? chunk : chunk - nxc) * cc;
     bf16* raw = raw0 + slot * L.raw;
-    if constexpr (kNchw) {
+    if constexpr (kEdge) {
+      // tw / 8 + 2 copies from the 16-byte boundary at or before the
+      // row's first element, none outside the tensor, the last one cut at
+      // its end
+      const long long lo = (long long)(size_t)(is_x ? x_pad : h_prev);
+      const long long end = (long long)(size_t)(
+          is_x ? x_pad + x_numel : h_prev + (size_t)B * H * C * W);
+      Walk w = w_x;
+      for (int i = threadIdx.x; i < (R + 2) * cc * qx;
+           i += blockDim.x, w.next()) {
+        const int py = y0 + w.c;
+        const bool row_ok = is_x ? py < H + 2 : py >= 1 && py <= H;
+        const long long g =
+            (edge_first(is_x, b, w.c, y0, x0, ch0 + w.b) & ~15LL) + 16 * w.a;
+        const bool ok = row_ok && g >= lo && g < end;
+        cp_async16(raw + (w.c * cc + w.b) * L.rs + 8 * w.a,
+                   ok ? reinterpret_cast<const void*>(g) : wt,
+                   ok ? (int)min(16LL, end - g) : 0);
+      }
+    } else if constexpr (kNchw) {
       // x (B, Cx, H, W) or h_prev (B, C, H, W)
       const bf16* src = is_x ? x_pad : h_prev;
       const int cin = is_x ? Cx : C;
@@ -723,9 +771,41 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
   // the epilogue's planes of unit u: [kIn planes][Ct][os], each row the
   // unit's pixels (R rows of tw); zero past the image
   const Walk w_e(threadIdx.x, blockDim.x, tw / 8, R);
+  // the edge variant: row r of a plane's channel at [r (tw + 8)], its
+  // tw / 8 + 1 copies from the 16-byte boundary at or before column x0,
+  // the element of column x0 at the row's phase (edge_phase)
+  const int er = tw + 8;
+  auto plane_end = [&](int pl) {
+    return (long long)(size_t)(epi.in_row(pl, (size_t)B * H - 1, C - 1) + W);
+  };
+  auto edge_phase = [&](int pl, size_t row, int c, int x0) {
+    return (int)(((size_t)(epi.in_row(pl, row, c) + x0) >> 1) & 7);
+  };
   auto fetch_epi = [&](long long u) {
     int b, y0, x0;
     unit_origin(u, b, y0, x0);
+    if constexpr (kEdge) {
+      Walk w(threadIdx.x, blockDim.x, tw / 8 + 1, R);
+      for (int i = threadIdx.x; i < Epi::kIn * ct * R * (tw / 8 + 1);
+           i += blockDim.x, w.next()) {
+        const int y = y0 + w.b;
+        const int pl = w.c / ct;
+        long long g = 0, end = 0;
+        if (y < H) {
+          g = ((long long)(size_t)(epi.in_row(pl, (size_t)b * H + y,
+                                              c0 + w.c - pl * ct) +
+                                   x0) &
+               ~15LL) +
+              16 * w.a;
+          end = plane_end(pl);
+        }
+        const bool ok = g < end;
+        cp_async16(etile + w.c * L.os + w.b * er + 8 * w.a,
+                   ok ? reinterpret_cast<const void*>(g) : wt,
+                   ok ? (int)min(16LL, end - g) : 0);
+      }
+      return;
+    }
     Walk w = w_e;
     for (int i = threadIdx.x; i < Epi::kIn * ct * R * (tw / 8);
          i += blockDim.x, w.next()) {
@@ -764,7 +844,27 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
       const int g = w.b;
       const int q = 4 * w.a + (lane >> 3);   // this lane's store block
       unsigned v[4];
-      if (kNchw || !is_x) {
+      if constexpr (kEdge) {
+        // raw column phase + j is the halo's column j; h's columns
+        // outside 0 .. W - 1 (x0 - 1 + j) read zero
+        const int c = 8 * g + (lane >> 2);
+        const int phase =
+            (int)((edge_first(is_x, b, r, y0, x0, ch0 + c) >> 1) & 7);
+        const unsigned short* row = reinterpret_cast<const unsigned short*>(
+            raw + (r * cc + c) * L.rs + phase + 2 * (lane & 3));
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int j = 8 * (4 * w.a + m) + 2 * (lane & 3);
+          unsigned lo = row[8 * (4 * w.a + m)];
+          unsigned hi = row[8 * (4 * w.a + m) + 1];
+          if (!is_x) {
+            const int hx = x0 - 1 + j;
+            if (hx < 0 || hx >= W) lo = 0u;
+            if (hx + 1 < 0 || hx + 1 >= W) hi = 0u;
+          }
+          v[m] = lo | (hi << 16);
+        }
+      } else if (kNchw || !is_x) {
         ldmatrix_x4(v, raw + (r * cc + 8 * g + (lane & 7)) * L.rs + 8 * q);
       } else {
         const int c = 8 * g + (lane >> 2);
@@ -774,7 +874,8 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
         for (int m = 0; m < 4; ++m)
           v[m] = *reinterpret_cast<const unsigned*>(row + 8 * (4 * w.a + m));
       }
-      const int pc = 8 * q + (lane & 7) - (is_x && !kNchw ? 0 : 7);
+      const int pc =
+          8 * q + (lane & 7) - (kEdge || (is_x && !kNchw) ? 0 : 7);
       stmatrix_x4_trans(pc >= 0 && pc < L.twp
                             ? halo + (r * L.twp + pc) * L.cs + 8 * g
                             : trash,
@@ -911,6 +1012,67 @@ cell_staged_kernel(const __nv_bfloat16* __restrict__ h_prev,
     }
     mbar_wait(mbar, mbar_phase);   // this unit's planes have landed
     mbar_phase ^= 1u;
+    if constexpr (kEdge) {
+      // each lane reads its (pixel, channel) elements of the planes at
+      // their rows' phases and writes each output over its own element of
+      // plane out_plane(k); then the rows leave element by element
+#pragma unroll
+      for (int i = 0; i < WM; ++i) {
+        const int r = u_m[i] / tw;
+        const int px = u_m[i] % tw + (lane >> 2);
+        const size_t row = (size_t)b * H + min(y0 + r, H - 1);
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int s1 = 0; s1 < 2; ++s1) {
+            const int cl = nw0 + 8 * j + 2 * (lane & 3) + s1;
+            unsigned short* pv[Epi::kIn];
+#pragma unroll
+            for (int pl = 0; pl < Epi::kIn; ++pl)
+              pv[pl] = reinterpret_cast<unsigned short*>(
+                           etile + (pl * ct + cl) * L.os + r * er +
+                           edge_phase(pl, row, c0 + cl, x0)) +
+                       px;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              float g[4] = {acc[i][j][0][2 * hf + s1],
+                            acc[i][j][1][2 * hf + s1],
+                            acc[i][j][2][2 * hf + s1],
+                            acc[i][j][3][2 * hf + s1]};
+              if constexpr (kBias) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) g[q] += bias_s[q * ct + cl];
+              }
+              float ve[Epi::kIn], o[Epi::kOut];
+#pragma unroll
+              for (int pl = 0; pl < Epi::kIn; ++pl)
+                ve[pl] = __uint_as_float((unsigned)pv[pl][8 * hf] << 16);
+              epi.tile(g, ve, o);
+#pragma unroll
+              for (int k = 0; k < Epi::kOut; ++k)
+                pv[Epi::out_plane(k)][8 * hf] =
+                    __bfloat16_as_ushort(__float2bfloat16_rn(o[k]));
+            }
+          }
+      }
+      zero_acc();
+      __syncthreads();
+      Walk w(threadIdx.x, blockDim.x, tw, R);
+      for (int i = threadIdx.x; i < Epi::kOut * ct * R * tw;
+           i += blockDim.x, w.next()) {
+        const int y = y0 + w.b;
+        const int xx = x0 + w.a;
+        if (y >= H || xx >= W) continue;
+        const int k = w.c / ct;
+        const int cl = w.c - k * ct;
+        const int pl = Epi::out_plane(k);
+        const size_t row = (size_t)b * H + y;
+        epi.out_row(k, row, c0 + cl)[xx] =
+            etile[(pl * ct + cl) * L.os + w.b * er +
+                  edge_phase(pl, row, c0 + cl, x0) + w.a];
+      }
+      return;
+    }
     // fragments of the planes by ldmatrix.trans of 8 channels x 8 pixels:
     // x4 matrices (plane pl, pixels 0-7), (pl, 8-15), (pl + 1, 0-7), (pl
     // + 1, 8-15); the outputs go back by stmatrix.trans to the same places
@@ -1052,8 +1214,8 @@ __global__ void cell_reduce_kernel(const float* __restrict__ ws, Epi epi,
   epi(row, c, x, g[0], g[1], g[2], g[3]);
 }
 
-template <int WM, int J, bool kNarrow, int kBlocks, typename Layout,
-          typename Epi>
+template <int WM, int J, bool kNarrow, int kBlocks, bool kEdge,
+          typename Layout, typename Epi>
 cudaError_t launch_staged(const void* h_prev, const void* x_pad,
                           const void* wt, float* ws, int B, int H, int W,
                           int C, int Cx, const CellPlan& p,
@@ -1061,10 +1223,10 @@ cudaError_t launch_staged(const void* h_prev, const void* x_pad,
   const int ct = 8 * J * p.warps_n;
   const size_t smem =
       CellSmem(p, ct, (Cx + C) / p.cc / p.splits, epi_planes<Epi>(),
-               EpiBias<Epi>::value ? 4 * ct : 0)
+               EpiBias<Epi>::value ? 4 * ct : 0, kEdge)
           .bytes();
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = cell_staged_kernel<WM, J, kNarrow, kBlocks, Layout, Epi>;
+  auto kern = cell_staged_kernel<WM, J, kNarrow, kBlocks, kEdge, Layout, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1082,42 +1244,18 @@ cudaError_t launch_staged(const void* h_prev, const void* x_pad,
   return cudaGetLastError();
 }
 
-// The staged loop as the plan cuts it (bf16 operands in Layout): warp
-// tiles of wm m-tiles x wj channel blocks, per_sm blocks an SM, the rest
-// of the plan in p; ws holds at least splits * B * H * 4C * W floats where
-// splits > 1. Returns cudaErrorInvalidValue for a plan or operands the
-// kernel does not take.
-template <typename Layout = RowMajorLayout, typename Epi>
-cudaError_t launch_cell_staged(const void* h_prev, const void* x_pad,
-                               const void* wt, float* ws, long long ws_floats,
-                               int B, int H, int W, int C, int Cx, int wm,
-                               int wj, int per_sm, const CellPlan& p,
-                               cudaStream_t stream, Epi epi) {
-  const int ct = 8 * wj * p.warps_n;
-  const long long units =
-      (long long)B * ((H + p.rows - 1) / (p.rows > 0 ? p.rows : 1)) *
-      ((W + p.tw - 1) / (p.tw > 0 ? p.tw : 1));
+// The staged loop's instantiations, one a (wm, wj, narrow chunk, blocks
+// an SM).
+template <bool kEdge, typename Layout, typename Epi>
+cudaError_t dispatch_staged(const void* h_prev, const void* x_pad,
+                            const void* wt, float* ws, int B, int H, int W,
+                            int C, int Cx, int wm, int wj, int per_sm,
+                            const CellPlan& p, cudaStream_t stream, Epi epi) {
   const int cc = p.cc;
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cx < 0 || C % 8 || Cx % 8 ||
-      W % 8 || (wm != 1 && wm != 2 && wm != 4) ||
-      (wj != 1 && wj != 2 && wj != 4) || wm * wj > 8 || p.warps_m < 1 ||
-      p.warps_n < 1 || p.warps_m * p.warps_n > 8 || C % ct ||
-      p.rows < 1 || p.tw < 16 || p.tw % 16 ||
-      p.rows * p.tw != 16 * wm * p.warps_m ||
-      (cc != 8 && cc != 16 && cc != 32 && cc != 64) || C % cc || Cx % cc ||
-      (cc == 8 && wj > 2) || (p.stages != 2 && p.stages != 3) ||
-      p.splits < 1 || ((Cx + C) / cc) % p.splits || p.groups < 1 ||
-      p.groups > units || (Cx > 0) != (x_pad != nullptr) ||
-      (per_sm != 1 && (per_sm != 2 || wm * wj > 4)) ||
-      (p.splits > 1 &&
-       (ws == nullptr ||
-        ws_floats < (long long)p.splits * B * H * 4 * C * W)))
-    return cudaErrorInvalidValue;
-#define RSIS_STAGED(WM_, J_, N_, PB_)                                        \
-  if (wm == WM_ && wj == J_ && (cc == 8) == N_ && per_sm == PB_)             \
-    return launch_staged<WM_, J_, N_, PB_, Layout>(h_prev, x_pad, wt, ws, B, \
-                                                   H, W, C, Cx, p, stream,   \
-                                                   epi);
+#define RSIS_STAGED(WM_, J_, N_, PB_)                                         \
+  if (wm == WM_ && wj == J_ && (cc == 8) == N_ && per_sm == PB_)              \
+    return launch_staged<WM_, J_, N_, PB_, kEdge, Layout>(                    \
+        h_prev, x_pad, wt, ws, B, H, W, C, Cx, p, stream, epi);
   RSIS_STAGED(1, 1, false, 1) RSIS_STAGED(1, 2, false, 1)
   RSIS_STAGED(1, 4, false, 1) RSIS_STAGED(2, 1, false, 1)
   RSIS_STAGED(2, 2, false, 1) RSIS_STAGED(2, 4, false, 1)
@@ -1133,6 +1271,49 @@ cudaError_t launch_cell_staged(const void* h_prev, const void* x_pad,
   RSIS_STAGED(4, 1, true, 2)
 #undef RSIS_STAGED
   return cudaErrorInvalidValue;
+}
+
+// The staged loop as the plan cuts it (bf16 operands in Layout): warp
+// tiles of wm m-tiles x wj channel blocks, per_sm blocks an SM, the rest
+// of the plan in p; ws holds at least splits * B * H * 4C * W floats where
+// splits > 1. W a multiple of 8, or any W with kEdgeOk (the edge variant;
+// RowMajorLayout only). Returns cudaErrorInvalidValue for a plan or
+// operands the kernel does not take.
+template <typename Layout = RowMajorLayout, bool kEdgeOk = false,
+          typename Epi>
+cudaError_t launch_cell_staged(const void* h_prev, const void* x_pad,
+                               const void* wt, float* ws, long long ws_floats,
+                               int B, int H, int W, int C, int Cx, int wm,
+                               int wj, int per_sm, const CellPlan& p,
+                               cudaStream_t stream, Epi epi) {
+  const int ct = 8 * wj * p.warps_n;
+  const long long units =
+      (long long)B * ((H + p.rows - 1) / (p.rows > 0 ? p.rows : 1)) *
+      ((W + p.tw - 1) / (p.tw > 0 ? p.tw : 1));
+  const int cc = p.cc;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cx < 0 || C % 8 || Cx % 8 ||
+      (W % 8 && !kEdgeOk) || (wm != 1 && wm != 2 && wm != 4) ||
+      (wj != 1 && wj != 2 && wj != 4) || wm * wj > 8 || p.warps_m < 1 ||
+      p.warps_n < 1 || p.warps_m * p.warps_n > 8 || C % ct ||
+      p.rows < 1 || p.tw < 16 || p.tw % 16 ||
+      p.rows * p.tw != 16 * wm * p.warps_m ||
+      (cc != 8 && cc != 16 && cc != 32 && cc != 64) || C % cc || Cx % cc ||
+      (cc == 8 && wj > 2) || (p.stages != 2 && p.stages != 3) ||
+      p.splits < 1 || ((Cx + C) / cc) % p.splits || p.groups < 1 ||
+      p.groups > units || (Cx > 0) != (x_pad != nullptr) ||
+      (per_sm != 1 && (per_sm != 2 || wm * wj > 4)) ||
+      (p.splits > 1 &&
+       (ws == nullptr ||
+        ws_floats < (long long)p.splits * B * H * 4 * C * W)))
+    return cudaErrorInvalidValue;
+  if constexpr (kEdgeOk) {
+    if (W % 8)
+      return dispatch_staged<true, Layout>(h_prev, x_pad, wt, ws, B, H, W, C,
+                                           Cx, wm, wj, per_sm, p, stream,
+                                           epi);
+  }
+  return dispatch_staged<false, Layout>(h_prev, x_pad, wt, ws, B, H, W, C,
+                                        Cx, wm, wj, per_sm, p, stream, epi);
 }
 
 }  // namespace rsis

@@ -20,8 +20,9 @@
 // c_prev read once and h, c written once: the tensor cores bound cells
 // 0-2 (0.020-0.059 ms) and device memory cells 3-4 (0.10 and 0.20 ms).
 //
-// Design (bf16 with C, Cx and W multiples of 8: every cell of the decode;
-// the staged loop of cell_common.cuh, shared with K4):
+// Design (bf16 with C and Cx multiples of 8: every cell of the decode;
+// the staged loop of cell_common.cuh, shared with K4; W not a multiple of
+// 8, as at the CVPPP recipe's 400x400 input, takes its edge variant):
 //   1. A block owns a unit of rows x tw output pixels (128-512) and a
 //      tile of Ct hidden channels with all four of their gates, so the
 //      LSTM update runs on the accumulators with no shuffles; it walks
@@ -45,7 +46,7 @@
 //      atomics, the same bits on every launch.
 // The plan comes from the host (cell_plan in ops/fused_cell.py;
 // chip_k5_step.py --cell-sweep times every alternative). Everything else
-// (fp32, other widths) runs the FMA loop of cell_common.cuh.
+// (fp32, other channel widths) runs the FMA loop of cell_common.cuh.
 
 #include "cell_common.cuh"
 
@@ -122,9 +123,9 @@ cudaError_t run(const void* h_prev, const void* x_pad, const void* c_prev,
                      static_cast<T*>(c_out), C, W};
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (mma)
-      return rsis::launch_cell_staged(h_prev, x_pad, wt, ws, ws_floats, B, H,
-                                      W, C, Cx, wm, wj, per_sm, p, stream,
-                                      epi);
+      return rsis::launch_cell_staged<rsis::RowMajorLayout, true>(
+          h_prev, x_pad, wt, ws, ws_floats, B, H, W, C, Cx, wm, wj, per_sm, p,
+          stream, epi);
   }
   if (mma) return cudaErrorInvalidValue;
   return rsis::launch_cell_fma_loop<T, rsis::RowMajorLayout>(
@@ -135,8 +136,8 @@ cudaError_t run(const void* h_prev, const void* x_pad, const void* c_prev,
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor in the same dtype). The
 // plan (cell_plan): mma = 0 runs the FMA loop (the other fields unused);
-// mma = 1 the staged tensor-core loop (bfloat16, C, Cx and W multiples of
-// 8) with warp tiles of wm m-tiles x wj channel blocks, warps_m x warps_n
+// mma = 1 the staged tensor-core loop (bfloat16, C and Cx multiples of 8;
+// W any, its edge variant where W is not a multiple of 8) with warp tiles of wm m-tiles x wj channel blocks, warps_m x warps_n
 // warps, units of rows x tw pixels, K-chunks of cc channels in a ring of
 // `stages`, `splits` parts of the chunks (ws then holds at least splits *
 // B * H * 4C * W floats), `groups` blocks of units and per_sm blocks an

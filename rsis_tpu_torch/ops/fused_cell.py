@@ -131,9 +131,11 @@ class CellPlan:
     """How ``csrc/fused_cell.cu`` (K1), ``csrc/cell_bwd.cu`` (K4) and
     ``csrc/clstm_step.cu`` (K8) cut one cell.
 
-    mma: the staged tensor-core loop (bf16, C, Cx and W multiples of 8)
-    with warp tiles of wm m-tiles (16 pixels of one row) x wj blocks of 8
-    hidden channels (each with its four gates), warps_m x warps_n warps a
+    mma: the staged tensor-core loop (bf16, C and Cx multiples of 8; W a
+    multiple of 8 too, or for K1 the kernel's edge variant, which stages
+    every row from its 16-byte boundary at the row's phase) with warp
+    tiles of wm m-tiles (16 pixels of one row) x wj blocks of 8 hidden
+    channels (each with its four gates), warps_m x warps_n warps a
     block, units of ``rows`` x ``tw`` output pixels (rows * tw == 16 wm
     warps_m) and a tile of ``block_c`` = 8 wj warps_n hidden channels,
     K-chunks of all nine taps x ``cc`` channels of x or of h in a ring of
@@ -173,12 +175,15 @@ class CellPlan:
     def chunks(self, ch: int, cx: int) -> int:
         return (cx + ch) // self.cc
 
-    def smem_bytes(self, ch: int, cx: int, kind: str = "forward") -> int:
-        """Dynamic shared memory of one block (the kernel's ``CellSmem``):
-        the ring of raw input rows, the weight slots (one when a block has
-        one chunk), the transposed halo, the epilogue's planes
-        (``EPI_PLANES[kind]``; none with parts), 16 bytes of trash, the
-        planes' mbarrier and, for K8, the tile's fp32 gate biases."""
+    def smem_bytes(self, ch: int, cx: int, kind: str = "forward", *,
+                   w: int) -> int:
+        """Dynamic shared memory of one block (the kernel's ``CellSmem``)
+        at images w wide: the ring of raw input rows, the weight slots (one
+        when a block has one chunk), the transposed halo, the epilogue's
+        planes (``EPI_PLANES[kind]``; none with parts; where w is not a
+        multiple of 8, the edge variant's row of tw + 8 elements for each
+        of the unit's rows), 16 bytes of trash, the planes' mbarrier and,
+        for K8, the tile's fp32 gate biases."""
         ks = 9 * self.cc + (16 if (9 * self.cc // 8) % 2 else 8)
         cs = self.cc + (0 if (self.cc // 8) % 2 else 8)
         raw = (self.rows + 2) * self.cc * (self.tw + 24)
@@ -186,18 +191,20 @@ class CellPlan:
         wslots = 1 if self.chunks(ch, cx) // self.splits == 1 else \
             self.stages
         halo = (self.rows + 2) * (self.tw + 2) * cs
+        row = self.rows * (self.tw + 8) if w % 8 else self.pixels
         epi = 0 if self.splits > 1 else EPI_PLANES[kind] * self.block_c * (
-            self.pixels + 8)
+            row + 8)
         bias = 4 * 4 * self.block_c if kind == "step" else 0
         return (2 * (self.stages * raw + wslots * wgt + halo + epi + 8) + 16
                 + bias)
 
-    def two_per_sm(self, ch: int, cx: int, kind: str = "forward") -> bool:
+    def two_per_sm(self, ch: int, cx: int, kind: str = "forward", *,
+                   w: int) -> bool:
         """Whether an SM can hold two blocks at once: the warp tile keeps
         at most 64 accumulators a thread (the kernel is then built for 128
         registers) and two blocks' shared memory fits."""
-        return (self.wm * self.wj <= 4 and self.smem_bytes(ch, cx, kind)
-                <= SMEM_PER_SM // 2 - 1024)
+        return (self.wm * self.wj <= 4 and self.smem_bytes(
+            ch, cx, kind, w=w) <= SMEM_PER_SM // 2 - 1024)
 
     def staged_bytes(self) -> int:
         """Bytes one chunk of one unit brings into shared memory (the
@@ -217,7 +224,8 @@ def cell_plan(b: int, h: int, w: int, ch: int, cx: int, dtype: torch.dtype,
     ("step", the NCHW ConvLSTM step) for b images of h x w, ch hidden and
     cx x channels.
 
-    Tensor cores (bf16, ch, cx and w multiples of 8), one block of 8
+    Tensor cores (bf16, ch, cx and w multiples of 8; for K1 any w, the
+    kernel's edge variant where w is not a multiple of 8), one block of 8
     warps an SM:
       - the K-chunk: the widest of 64, 32, 16 channels that divides ch and
         cx (8, two taps a k16 step, only where none does);
@@ -229,16 +237,18 @@ def cell_plan(b: int, h: int, w: int, ch: int, cx: int, dtype: torch.dtype,
       - wm halved (down to 2) where units x channel tiles would leave
         half the SMs idle, and the chunk widened again where the smaller
         tile's ring allows;
-      - a 3-stage ring where it fits;
+      - a 3-stage ring where it fits (the edge variant's checked again
+        after a split, whose parts stage no epilogue planes);
       - the split: where units x channel tiles leave SMs idle, the chunks
         are cut into the most parts (a divisor of the chunk count) that
         keep the blocks within one wave, one unit a block; otherwise one
         part and the units dealt to one wave of blocks (two blocks an SM
         where ``two_per_sm`` allows).
-    FMA otherwise (fp32, other widths): the kernel's own FMA launch.
-    Cached: the search runs once per shape, not once per launch."""
+    FMA otherwise (fp32, other channel widths; K4 and K8 at a w that is
+    not a multiple of 8): the kernel's own FMA launch. Cached: the search
+    runs once per shape, not once per launch."""
     if not (dtype == torch.bfloat16 and ch % 8 == 0 and cx % 8 == 0
-            and w % 8 == 0):
+            and (kind == "forward" or w % 8 == 0)):
         return CellPlan(mma=False)
     ccs = [c for c in CELL_CHUNKS if ch % c == 0 and cx % c == 0]
     ccs = [c for c in ccs if c >= 16] or ccs
@@ -257,7 +267,7 @@ def cell_plan(b: int, h: int, w: int, ch: int, cx: int, dtype: torch.dtype,
                     continue
                 plan = CellPlan(True, wm, wj, warps_m, warps_n,
                                 *_unit_shape(px, h, w), cc, 2, 1, 1)
-                if plan.smem_bytes(ch, cx, kind) > SMEM_LIMIT:
+                if plan.smem_bytes(ch, cx, kind, w=w) > SMEM_LIMIT:
                     continue
                 key = (px * ct, -plan.staged_bytes() / (px * ct * cc), wm)
                 if best is None or key > best[0]:
@@ -275,16 +285,22 @@ def cell_plan(b: int, h: int, w: int, ch: int, cx: int, dtype: torch.dtype,
     # stage where it fits
     plan = next(p for p in (dataclasses.replace(plan, cc=cc) for cc in ccs
                             if cc != 8 or plan.wj <= 2)
-                if p.smem_bytes(ch, cx, kind) <= SMEM_LIMIT)
+                if p.smem_bytes(ch, cx, kind, w=w) <= SMEM_LIMIT)
     three = dataclasses.replace(plan, stages=3)
-    if three.smem_bytes(ch, cx, kind) <= SMEM_LIMIT:
+    if three.smem_bytes(ch, cx, kind, w=w) <= SMEM_LIMIT:
         plan = three
     n_units = plan.units(b, h, w)
     if n_units * n_ct < SM_COUNT:
         splits = _divisor_at_most(plan.chunks(ch, cx),
                                   SM_COUNT // (n_units * n_ct))
-        return dataclasses.replace(plan, splits=splits, groups=n_units)
-    per_sm = 2 if plan.two_per_sm(ch, cx, kind) else 1
+        plan = dataclasses.replace(plan, splits=splits, groups=n_units)
+        # parts stage no epilogue planes, so a third stage may fit now;
+        # only the edge variant takes it (the aligned loop keeps the ring
+        # chosen before the split)
+        three = dataclasses.replace(plan, stages=3)
+        return (three if w % 8 and splits > 1 and three.smem_bytes(
+            ch, cx, kind, w=w) <= SMEM_LIMIT else plan)
+    per_sm = 2 if plan.two_per_sm(ch, cx, kind, w=w) else 1
     return dataclasses.replace(plan, per_sm=per_sm, groups=min(
         n_units, max(1, per_sm * SM_COUNT // n_ct)))
 
@@ -339,7 +355,9 @@ def fused_cell_rowmajor(h_prev: torch.Tensor, x_pad: torch.Tensor | None,
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16,
     contiguous) launch ``csrc/fused_cell.cu`` as ``cell_plan`` cuts it
-    and count one launch in ``fused_cell_rowmajor.launches``."""
+    and count one launch in ``fused_cell_rowmajor.launches``, and one in
+    ``fused_cell_rowmajor.mma_launches`` where the plan takes the tensor
+    cores."""
     _check(h_prev, x_pad, c_prev, s_term, wt, cx, ch)
     if h_prev.device.type == "cpu":
         return fused_cell_rowmajor_ref(h_prev, x_pad, c_prev, s_term, wt,
@@ -370,10 +388,12 @@ def fused_cell_rowmajor(h_prev: torch.Tensor, x_pad: torch.Tensor | None,
         raise RuntimeError(f"fused cell kernel launch failed: CUDA error "
                            f"{err}")
     fused_cell_rowmajor.launches += 1
+    fused_cell_rowmajor.mma_launches += plan.mma
     return h_out, c_out
 
 
 fused_cell_rowmajor.launches = 0
+fused_cell_rowmajor.mma_launches = 0
 
 
 def plan_args(plan: CellPlan) -> tuple:

@@ -13,7 +13,11 @@ a whole-row offset, the chunk order, the parts summed in order, the
 epilogue's planes and output map) is held against the plain versions in
 fp32 at shapes whose H and W are not multiples of the unit, within 1e-5
 of the output's largest magnitude (the plain versions sum in fp32, the
-mirror in fp64)."""
+mirror in fp64). K1's edge variant, where W is not a multiple of 8 (the
+CVPPP recipe's 13-, 25-, 50- and 100-wide cells), is mirrored too: every
+row copied from the 16-byte boundary at or before its first element and
+read at its phase, h's columns outside the image zeroed, the epilogue's
+planes read and written at their rows' phases."""
 
 import dataclasses
 import sys
@@ -32,11 +36,13 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 # (H, W, C, Cx) of the five cells: the forward at 512x1024 and the train
-# step at 256x512 (hidden 128)
+# step at 256x512 (hidden 128), and the CVPPP recipe's forward at 400x400
 FWD_CELLS = [(16, 32, 128, 0), (32, 64, 64, 128), (64, 128, 32, 64),
              (128, 256, 16, 32), (256, 512, 8, 16)]
 TRAIN_CELLS = [(8, 16, 128, 0), (16, 32, 64, 128), (32, 64, 32, 64),
                (64, 128, 16, 32), (128, 256, 8, 16)]
+LEAVES_CELLS = [(13, 13, 128, 0), (25, 25, 64, 128), (50, 50, 32, 64),
+                (100, 100, 16, 32), (200, 200, 8, 16)]
 
 
 def _kind(backward):
@@ -59,14 +65,14 @@ def _check_mma_plan(b, h, w, c, cx, kind):
         assert plan.wj <= 2
     assert plan.chunks(c, cx) % plan.splits == 0
     assert plan.stages in (2, 3)
-    assert plan.smem_bytes(c, cx, kind) <= fc.SMEM_LIMIT
+    assert plan.smem_bytes(c, cx, kind, w=w) <= fc.SMEM_LIMIT
     if plan.stages == 2:   # a third stage would not fit
         assert dataclasses.replace(plan, stages=3).smem_bytes(
-            c, cx, kind) > fc.SMEM_LIMIT
+            c, cx, kind, w=w) > fc.SMEM_LIMIT
     units = plan.units(b, h, w)
     assert plan.per_sm in (1, 2)
     if plan.per_sm == 2:
-        assert plan.two_per_sm(c, cx, kind) and plan.splits == 1
+        assert plan.two_per_sm(c, cx, kind, w=w) and plan.splits == 1
     per_sm = plan.per_sm
     assert 1 <= plan.groups <= min(units, per_sm * fc.SM_COUNT)
     if plan.splits > 1:    # parts only where the units leave SMs idle
@@ -98,6 +104,32 @@ def test_train_cells_take_the_tensor_cores(b, cell):
     assert plan.blocks(c) >= 120
 
 
+@pytest.mark.parametrize("b", [256, 64, 1])
+@pytest.mark.parametrize("cell", range(5))
+def test_leaves_cells_take_the_tensor_cores(b, cell):
+    """The CVPPP recipe at 400x400: cells 0-3 (13-100 wide) on the edge
+    variant, cell 4 (200 wide) on the aligned loop; K4 keeps the FMA loop
+    at the odd widths."""
+    h, w, c, cx = LEAVES_CELLS[cell]
+    assert (w % 8 != 0) == (cell < 4)
+    plan = _check_mma_plan(b, h, w, c, cx, "forward")
+    if b >= 64:
+        assert plan.blocks(c) >= 120 and plan.splits == 1
+    back = fc.cell_plan(b, h, w, c, cx, torch.bfloat16, kind="backward")
+    assert back.mma == (cell == 4)
+
+
+def test_smoke_pyramids_are_the_cells():
+    """chip_smoke.py's concat_geoms gives these tables: each side halved
+    five times, rounding up (400 -> 13 at the coarsest cell)."""
+    widths = (128, 64, 32, 16, 8)
+    assert chip_smoke.concat_geoms(512, 1024, widths) == FWD_CELLS
+    assert chip_smoke.concat_geoms(*chip_smoke.TRAIN_HW, widths) == \
+        TRAIN_CELLS
+    assert chip_smoke.concat_geoms(*chip_smoke.LEAVES_HW, widths) == \
+        LEAVES_CELLS
+
+
 def test_cell4_runs_the_narrow_chunk():
     """C = 8 at cell 4: 8-channel chunks, two taps a k16 step."""
     for kind, cells in (("forward", FWD_CELLS), ("backward", TRAIN_CELLS)):
@@ -108,9 +140,15 @@ def test_cell4_runs_the_narrow_chunk():
 
 
 def _edge_plans():
+    """The edge shapes' plans; K4's only where W is a multiple of 8 (it
+    takes the FMA loop elsewhere)."""
     out = []
     for (h, w, c, cx), b in chip_smoke.K1_EDGE_GEOMS:
         for kind in ("forward", "backward"):
+            if kind == "backward" and w % 8:
+                assert not fc.cell_plan(b, h, w, c, cx, torch.bfloat16,
+                                        kind=kind).mma
+                continue
             out.append(((h, w, c, cx), b, kind,
                         _check_mma_plan(b, h, w, c, cx, kind)))
     return out
@@ -134,6 +172,16 @@ def test_edge_shapes_cover_every_choice():
     assert any(w < p.tw for (_, w, *_), _, _, p in plans)
     assert any(cx == 0 for (*_, cx), *_ in plans)
     assert any(b == 1 for _, b in chip_smoke.K1_EDGE_GEOMS)
+    # the edge variant: odd W (x_pad's rows at odd phases), W below 8,
+    # parts and one part, the narrow and wider chunks, several channel
+    # tiles
+    edge = [(g, p) for g, _, _, p in plans if g[1] % 8]
+    assert any(w % 2 for (_, w, *_), _ in edge)
+    assert any(w % 2 == 0 for (_, w, *_), _ in edge)
+    assert any(w < 8 for (_, w, *_), _ in edge)
+    assert {p.splits > 1 for _, p in edge} == {False, True}
+    assert {p.cc == 8 for _, p in edge} == {False, True}
+    assert any(c // p.block_c > 1 for (_, _, c, _), p in edge)
 
 
 @pytest.mark.parametrize("args", [
@@ -143,8 +191,13 @@ def test_edge_shapes_cover_every_choice():
 ])
 @pytest.mark.parametrize("backward", [False, True])
 def test_fma_plan(args, backward):
-    assert fc.cell_plan(*args, kind=_kind(backward)) == fc.CellPlan(
-        mma=False)
+    """The FMA loop, but K1 at a W that is not a multiple of 8: the staged
+    loop's edge variant."""
+    plan = fc.cell_plan(*args, kind=_kind(backward))
+    if args[2] % 8 and not backward:
+        assert plan.mma
+    else:
+        assert plan == fc.CellPlan(mma=False)
 
 
 # ---- the numpy mirror of the staged loop ---------------------------------
@@ -192,6 +245,13 @@ def _mirror(h_prev, x_pad, c_prev, s_term, wt, cot, cx, plan):
     backward = cot is not None
     # the planes' sources (in_row) and the outputs (out_row, out_plane)
     src = [s_term[:, :, q * ch:(q + 1) * ch] for q in range(4)] + [c_prev]
+    # the edge variant's view of them: (flat tensor, element offset of
+    # in_row(row, c))
+    flat_src = [(s_term.reshape(-1),
+                 lambda row, c, q=q: (row * 4 * ch + q * ch + c) * ww)
+                for q in range(4)]
+    flat_src += [(t.reshape(-1), lambda row, c: (row * ch + c) * ww)
+                 for t in [c_prev] + list(cot or ())]
     if backward:
         src += list(cot)
         outs = [np.full((b_, hh, 4 * ch, ww), np.nan),
@@ -207,6 +267,7 @@ def _mirror(h_prev, x_pad, c_prev, s_term, wt, cot, cx, plan):
     written = [np.zeros(o.shape, int) for o in outs]
     parts = np.full((plan.splits, b_, hh, 4 * ch, ww), np.nan)
     xflat = x_pad.reshape(-1) if cx else None
+    hflat = h_prev.reshape(-1)
 
     def x_row(b, py, c):
         return ((b * (hh + 2) + py) * cx + c) * (ww + 2)
@@ -227,7 +288,11 @@ def _mirror(h_prev, x_pad, c_prev, s_term, wt, cot, cx, plan):
                 halo = np.full(((rows + 2) * twp * cs), np.nan)
                 for r in range(rows + 2):
                     for c in range(cc):
-                        if is_x:   # from the 16-byte boundary, at a phase
+                        if ww % 8:
+                            line = _edge_line(
+                                xflat if is_x else hflat, is_x, b, y0 + r,
+                                ch0 + c, x0, hh, ww, cx, ch, tw)
+                        elif is_x:   # from the 16-byte boundary, at a phase
                             e0 = (x_row(b, y0 + r, ch0 + c) + x0) & ~7
                             phase = (x_row(b, y0 + r, ch0 + c) + x0) & 7
                             for q in range(tw // 8 + 1):
@@ -272,6 +337,11 @@ def _mirror(h_prev, x_pad, c_prev, s_term, wt, cot, cx, plan):
                     parts[split, b, y0:ye, q * ch + c0:q * ch + c0 + ct,
                           x0:xe] = tile[:, :, q].transpose(0, 2, 1)
                 continue
+            if ww % 8:
+                _edge_epilogue(flat_src, acc, outs, written, out_rows,
+                               out_plane, fmap, b, y0, x0, c0, ct, rows, tw,
+                               b_, hh, ww, ch)
+                continue
             # the epilogue: planes [plane][channel][pixel] (zero past the
             # image), outputs into their planes, then the rows out
             etile = np.zeros((len(src), ct, rows, tw))
@@ -297,6 +367,73 @@ def _mirror(h_prev, x_pad, c_prev, s_term, wt, cot, cx, plan):
             written[o][:, :, ofs:ofs + ch] += 1
     assert all((n == 1).all() for n in written)   # each element once
     return outs
+
+
+def _groups(flat, first, n_groups, row_ok, end=None):
+    """The edge variant's copies of one row: n_groups 16-byte groups from
+    the boundary at or before element ``first`` of ``flat``, none outside
+    [0, end), the last one cut at ``end`` (the tensor's end by default);
+    a row outside the tensor is zero. Returns (raw, phase)."""
+    end = flat.size if end is None else end
+    e0, phase = first & ~7, first & 7
+    raw = np.zeros(8 * n_groups)
+    for q in range(n_groups):
+        e = e0 + 8 * q
+        if row_ok and 0 <= e < end:
+            n = min(8, end - e)
+            raw[8 * q:8 * q + n] = flat[e:e + n]
+    return raw, phase
+
+
+def _edge_line(flat, is_x, b, py, c, x0, hh, ww, cx, ch, tw):
+    """One staged row of the halo, padded columns x0 .. x0 + tw + 1, as the
+    edge variant's copies and transposition give it: x_pad's row py or h's
+    row py - 1 (columns x0 - 1 ..), h's columns outside the image zero."""
+    twp = tw + 2
+    if is_x:
+        first = ((b * (hh + 2) + py) * cx + c) * (ww + 2) + x0
+        row_ok = py < hh + 2
+    else:
+        first = ((b * hh + py - 1) * ch + c) * ww + x0 - 1
+        row_ok = 0 <= py - 1 < hh
+    raw, phase = _groups(flat, first, tw // 8 + 2, row_ok)
+    line = raw[phase:phase + twp].copy()
+    if not is_x:
+        cols = x0 - 1 + np.arange(twp)
+        line[(cols < 0) | (cols >= ww)] = 0
+    return line
+
+
+def _edge_epilogue(flat_src, acc, outs, written, out_rows, out_plane, fmap,
+                   b, y0, x0, c0, ct, rows, tw, b_, hh, ww, ch):
+    """The edge variant's epilogue of one unit: each plane row's tw / 8 + 1
+    copies from its 16-byte boundary (bounded by the plane's end) into a
+    row of tw + 8, read at its phase; each output written over its own
+    element of plane out_plane(k); the rows stored element by element."""
+    er = tw + 8
+    raw = np.zeros((len(flat_src), ct, rows, er))
+    phases = np.zeros((len(flat_src), ct, rows), int)
+    for pl, (flat, off) in enumerate(flat_src):
+        end = off(b_ * hh - 1, ch - 1) + ww
+        for cl in range(ct):
+            for r in range(rows):
+                y = min(y0 + r, hh - 1)
+                raw[pl, cl, r], phases[pl, cl, r] = _groups(
+                    flat, off(b * hh + y, c0 + cl) + x0, tw // 8 + 1,
+                    y0 + r < hh, end)
+    at = phases[..., None] + np.arange(tw)            # (pl, ct, rows, tw)
+    vals = np.take_along_axis(raw, at, axis=-1)
+    g = acc.reshape(rows, tw, 4, ct).transpose(2, 3, 0, 1)
+    res = fmap([g[q] for q in range(4)], list(vals))
+    for k, val in enumerate(res):
+        np.put_along_axis(raw[out_plane[k]], at[out_plane[k]], val, axis=-1)
+    ye, xe = min(y0 + rows, hh), min(x0 + tw, ww)
+    for k, (o, ofs) in enumerate(out_rows):
+        pl = out_plane[k]
+        got = np.take_along_axis(raw[pl], at[pl], axis=-1)
+        outs[o][b, y0:ye, ofs + c0:ofs + c0 + ct, x0:xe] = got[
+            :, :ye - y0, :xe - x0].transpose(1, 0, 2)
+        written[o][b, y0:ye, ofs + c0:ofs + c0 + ct, x0:xe] += 1
 
 
 def _case(geom, b, backward, plan=None):
@@ -349,6 +486,32 @@ def test_mirror_with_parts_tiles_and_several_units(backward):
     assert plan.units(b, *geom[:2]) > plan.groups
     assert geom[2] // plan.block_c == 2
     _case(geom, b, backward, plan)
+
+
+EDGE_GEOMS = [g for g in chip_smoke.K1_EDGE_GEOMS if g[0][1] % 8]
+
+
+@pytest.mark.parametrize("geom,b", EDGE_GEOMS)
+def test_edge_mirror_matches_plain(geom, b):
+    """K1's edge variant at the edge shapes whose W is not a multiple of 8
+    (odd and even W, W below 8, parts and one part)."""
+    _case(geom, b, False)
+
+
+@pytest.mark.parametrize("w", [13, 25, 50, 100])
+def test_edge_mirror_at_leaves_widths(w):
+    """The CVPPP recipe's odd-width cells at their own width and channels,
+    a few rows tall (the mirror walks every block in numpy): the plan's
+    unit at B=2, and several units a block across rows and column tiles
+    (W = 100: two column tiles of 64)."""
+    h, _, c, cx = next(g for g in LEAVES_CELLS if g[1] == w)
+    geom = (5, w, c, cx)
+    _case(geom, 2, False)
+    plan = fc.cell_plan(2, *geom, torch.bfloat16)
+    several = dataclasses.replace(plan, rows=2, tw=16 * plan.wm
+                                  * plan.warps_m // 2, splits=1, groups=3)
+    assert several.units(2, *geom[:2]) > several.groups
+    _case(geom, 2, False, several)
 
 
 @pytest.mark.parametrize("backward", [False, True])

@@ -61,8 +61,8 @@ def test_step_kind_counts_two_planes_and_the_bias():
     """K8's block: two epilogue planes (c_prev in; h and c out) and its 4
     Ct fp32 biases, against K1's five planes."""
     plan = fc.CellPlan(True, 2, 2, 4, 2, 4, 32, 16, 3, 1, 10)
-    fwd = plan.smem_bytes(64, 32, "forward")
-    step = plan.smem_bytes(64, 32, "step")
+    fwd = plan.smem_bytes(64, 32, "forward", w=32)
+    step = plan.smem_bytes(64, 32, "step", w=32)
     assert fwd - step == 2 * 3 * plan.block_c * (plan.pixels + 8) \
         - 16 * plan.block_c
 

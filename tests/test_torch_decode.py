@@ -35,20 +35,25 @@ ATOL = 1e-4
 T = 3
 # (C, H, W) of the five skips, coarsest first
 GEOMS = [(16, 2, 4), (16, 2, 4), (8, 2, 4), (4, 4, 8), (2, 8, 16)]
+# widths 3, 5, 10, 20 and 40, as the CVPPP recipe's 13, 25, 50, 100 and
+# 200: SAME padding at odd row ends and an upsample to the skip's own
+# width (3 -> 5), not to twice the coarse one (H stays even: the Pallas
+# kernels' 2-row halo blocks need it)
+ODD_GEOMS = [(16, 2, 3), (16, 2, 5), (8, 2, 10), (4, 4, 20), (2, 8, 40)]
 
 
-def _jax_setup(skip_mode, seed=0):
+def _jax_setup(skip_mode, seed=0, geoms=GEOMS):
     rng = np.random.default_rng(seed)
     skips = [jnp.asarray(rng.normal(size=(1, hh, ww, c)).astype(np.float32))
-             for (c, hh, ww) in GEOMS]
+             for (c, hh, ww) in geoms]
     dec = JaxRSISDecoder(hidden_size=16, num_classes=4, skip_mode=skip_mode)
     variables = jax.jit(lambda key: dec.init(key, skips, None, train=False))(
         jax.random.PRNGKey(seed))
     return dec, variables["params"], skips
 
 
-def _port_setup(skip_mode):
-    dec, params, skips = _jax_setup(skip_mode)
+def _port_setup(skip_mode, geoms=GEOMS):
+    dec, params, skips = _jax_setup(skip_mode, geoms=geoms)
     decoder = RSISDecoder(hidden_size=dec.hidden_size, num_classes=4,
                           skip_mode=skip_mode)
     decoder.load_state_dict(
@@ -58,9 +63,8 @@ def _port_setup(skip_mode):
     return dec, params, skips, decoder.eval(), t_skips
 
 
-@pytest.mark.parametrize("skip_mode", ["concat", "sum", "none"])
-def test_rowmajor_decode_matches_jax(skip_mode):
-    dec, params, skips, decoder, t_skips = _port_setup(skip_mode)
+def _rowmajor_matches_jax(skip_mode, geoms=GEOMS):
+    dec, params, skips, decoder, t_skips = _port_setup(skip_mode, geoms)
     want = jax_decode_rowmajor(params, skips, T, dec.hidden_size, skip_mode,
                                dtype=jnp.float32, interpret=True)
     with torch.inference_mode():
@@ -69,6 +73,17 @@ def test_rowmajor_decode_matches_jax(skip_mode):
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+    return got
+
+
+@pytest.mark.parametrize("skip_mode", ["concat", "sum", "none"])
+def test_rowmajor_decode_matches_jax(skip_mode):
+    _rowmajor_matches_jax(skip_mode)
+
+
+def test_rowmajor_decode_matches_jax_at_odd_widths():
+    masks = _rowmajor_matches_jax("concat", ODD_GEOMS)[0]
+    assert tuple(masks.shape) == (1, T, 16, 80)
 
 
 def test_plain_decode_matches_jax_mul():

@@ -18,11 +18,14 @@ ATOL = 3e-5
 
 GEOMS = [
     # (B, H, W, Cx, C): no up-input (cell 0), Cx > 0, a full-lane W, and
-    # H = 48 (three 16-row Pallas tiles: halo rows between tiles)
+    # H = 48 (three 16-row Pallas tiles: halo rows between tiles), and an
+    # odd W (the SAME padding at a row end of the CVPPP recipe's
+    # 13-wide cell)
     (2, 8, 32, 0, 16),
     (2, 8, 16, 16, 8),
     (1, 8, 128, 8, 4),
     (1, 48, 16, 4, 4),
+    (1, 6, 13, 8, 8),
 ]
 
 
