@@ -11,12 +11,20 @@ from the root of another tree to time that tree), with ``chip_smoke.py``'s
 inputs, timers and bounds:
 
 - --k5: ``weight_grad_rowmajor`` at the train step's five cells (256x512
-  input, hidden 128, bf16) for each --k5-batch: device ms of one launch
-  (CUDA-graph replay), its bound, ``torch.nn.grad.conv2d_weight`` on NCHW
-  copies of the same inputs, and the error against ``weight_grad_ref``;
+  input, hidden 128, bf16) for each --k5-batch, at the Pascal recipe's
+  (256x256, B=28, fp32, TF32 off: the FMA loop) and at the CVPPP
+  recipe's (400x400, bf16, B=2 and 256: the FMA loop at widths 13-100):
+  device ms of one launch (CUDA-graph replay), its bound, ``torch.nn.
+  grad.conv2d_weight`` on NCHW copies of the same inputs in the same
+  dtype, and the error against ``weight_grad_ref``;
 - --sweep: every tensor-core plan of K5 at those cells and batches
   (``weight_grad_plan`` replaced for the call), each checked against the
   plain version, the fastest beside the chosen one;
+- --fma-sweep: the FMA loop's plans around the chosen one at the Pascal
+  recipe's cells (fp32, B=28) and the CVPPP recipe's edge cells (bf16,
+  B=256): every thread tile and pixel-group count within a factor of two
+  of the chosen one, every unit, half and twice the chunks, the other
+  ring depth; timed and checked the same way;
 - --k3: ``conv3x3_rowmajor`` (K3) at the same cells and batches: device
   ms of one launch, of the cell backward's pullback (``conv3x3_pullback``
   where the tree has it, else the stacked conv with the slice and pad
@@ -80,6 +88,7 @@ Usage: python3 chip_k5_step.py [--k1] [--k4] [--k8] [--k2] [--k2-sweep]
                                [--cell-sweep [k1 k4 k8]]
                                [--k1-batch 32 4] [--k4-batch 32 8]
                                [--k5] [--k3] [--k5-batch 32 8] [--sweep]
+                               [--fma-sweep]
                                [--k3-sweep] [--mul] [--step] [--batch 32]
                                [--steps 20] [--iters 5] [--profile]
                                [--seed 0] [--out FILE]
@@ -104,23 +113,32 @@ def _short(kernel: str) -> str:
     return name.split("(", 1)[0]
 
 
-def time_k5(cs, b: int, gen) -> list:
+def _k5_cells(cs, b, gen, hw, dtype):
+    """(cell, geom, h_prev, x_pad, dg) at the five cells of a decode at
+    input hw: dg from the plain cell backward on chip_smoke's inputs."""
     from rsis_tpu_torch.models.decoder import decoder_widths
     from rsis_tpu_torch.ops import fused_cell_vjp as fcv
-    widths = decoder_widths(128)
-    rows = []
-    for i, ch in enumerate(widths):
-        hh, ww = cs.TRAIN_HW[0] // 2 ** (5 - i), cs.TRAIN_HW[1] // 2 ** (5 - i)
-        cx = widths[i - 1] if i else 0
-        ops, (dh, dc) = cs.bwd_inputs((hh, ww, ch, cx), b, torch.bfloat16,
-                                      gen)
-        h_prev, x_pad = ops[0], ops[1]
-        kw = {"cx": cx, "ch": ch}
+    for i, geom in enumerate(cs.concat_geoms(*hw, decoder_widths(128))):
+        ops, (dh, dc) = cs.bwd_inputs(geom, b, dtype, gen)
+        kw = {"cx": geom[3], "ch": geom[2]}
         dg = fcv.cell_backward_dgates_ref(*ops, dh, dc, **kw)[0]
+        yield i, geom, ops[0], ops[1], dg
+
+
+def time_k5(cs, b: int, gen, hw=None, dtype=torch.bfloat16) -> list:
+    """K5 at the five cells of a decode at input hw (the train step's by
+    default): device ms, conv2d_weight's, the bound and the error (bf16:
+    in ulps of max|dwt|; fp32: over max|dwt|)."""
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    rows = []
+    for i, (hh, ww, ch, cx), h_prev, x_pad, dg in _k5_cells(
+            cs, b, gen, hw or cs.TRAIN_HW, dtype):
+        kw = {"cx": cx, "ch": ch}
         want = fcv.weight_grad_ref(h_prev, x_pad, dg, **kw)
         got = fcv.weight_grad_rowmajor(h_prev, x_pad, dg, **kw)
+        scale = want.float().abs().max().item()
         err = cs.max_err(got, want) / (
-            cs.BF16_ULP * want.float().abs().max().item())
+            cs.BF16_ULP * scale if dtype == torch.bfloat16 else scale)
         xh = torch.cat([t.permute(0, 2, 1, 3).contiguous() for t in
                         ([x_pad[:, 1:-1, :, 1:-1]] if cx else [])
                         + [h_prev]], dim=1)
@@ -129,17 +147,22 @@ def time_k5(cs, b: int, gen) -> list:
                                                           **kw), iters=20)
         lms = cs.graph_ms(lambda: torch.nn.grad.conv2d_weight(
             xh, (4 * ch, cx + ch, 3, 3), dg_nchw, padding=1), iters=20)
-        bms, by = cs.bound_ms(cs.nbytes(h_prev, x_pad, dg, ops[4]),
+        wt_bytes = 4 * ch * 9 * (cx + ch) * dg.element_size()
+        bms, by = cs.bound_ms(cs.nbytes(h_prev, x_pad, dg) + wt_bytes,
                               2.0 * 4 * ch * 9 * (cx + ch) * b * hh * ww,
-                              torch.bfloat16)
+                              dtype)
+        tag = "fp32" if dtype == torch.float32 else "bf16"
         rows.append({"cell": i, "geom": [hh, ww, ch, cx], "batch": b,
-                     "ms": ms, "library_ms": lms, "bound_ms": bms,
-                     "bound_by": by, "err_ulps": err})
-        print(f"K5 cell{i} ({hh}, {ww}, {ch}, {cx}) B={b}: {ms:.4f} ms "
-              f"(conv2d_weight {lms:.4f}, bound {bms:.4f} by {by}; error "
-              f"{err:.3f} bf16 ulps of the max)", flush=True)
-    print(f"K5 B={b}: {sum(r['ms'] for r in rows):.4f} ms a decode step "
-          f"(conv2d_weight {sum(r['library_ms'] for r in rows):.4f}, bound "
+                     "dtype": tag, "ms": ms, "library_ms": lms,
+                     "bound_ms": bms, "bound_by": by, "err": err})
+        print(f"K5 {tag} cell{i} ({hh}, {ww}, {ch}, {cx}) B={b}: {ms:.4f} "
+              f"ms (conv2d_weight {lms:.4f}, bound {bms:.4f} by {by}; "
+              f"error {err:.3e} " + ("bf16 ulps of the max)"
+                                     if dtype == torch.bfloat16
+                                     else "of the max)"), flush=True)
+    print(f"K5 {rows[0]['dtype']} B={b}: {sum(r['ms'] for r in rows):.4f} "
+          f"ms a decode step (conv2d_weight "
+          f"{sum(r['library_ms'] for r in rows):.4f}, bound "
           f"{sum(r['bound_ms'] for r in rows):.4f})", flush=True)
     return rows
 
@@ -201,6 +224,83 @@ def sweep_k5(cs, b: int, gen, top: int = 5) -> dict:
                   else None, "best": rows[:top], "plans": len(rows)}
         print(f"K5 sweep cell{i} B={b}: {len(rows)} plans; chosen {mine} "
               f"{out[i]['chosen_ms']} ms; fastest "
+              + "; ".join(f"{p} {ms:.4f}" for ms, p in rows[:top]),
+              flush=True)
+    return out
+
+
+def _fma_neighbours(fcv, plan, b, h, w):
+    """FMA plans around ``plan``: thread tiles and pixel groups (128 or
+    256 threads) within a factor of two of its own, every unit of 1-8
+    rows x 4-128 columns, half and twice the chunks, the other ring
+    depth; each with the deepest ring that fits and no more chunks than
+    units."""
+    rep = dataclasses.replace
+    out = [plan]
+    for thm in (plan.threads_m // 2, plan.threads_m, 2 * plan.threads_m):
+        for thc in (plan.threads_c // 2, plan.threads_c,
+                    2 * plan.threads_c):
+            for nt in (128, 256):
+                if thm and thc and nt % (thm * thc) == 0:
+                    out.append(rep(plan, threads_m=thm, threads_c=thc,
+                                   groups=nt // (thm * thc)))
+    for rows in (1, 2, 4, 8):
+        for tw in (4, 8, 16, 32, 64, 128):
+            if rows <= h and tw < 2 * w:
+                out.append(rep(plan, rows=rows, tw=tw))
+    out += [rep(plan, chunks=max(1, plan.chunks // 2)),
+            rep(plan, chunks=2 * plan.chunks),
+            rep(plan, stages=5 - plan.stages)]
+    seen = {}
+    for p in out:
+        if p.smem_bytes() > fcv.SMEM_LIMIT:
+            p = rep(p, stages=2)
+        p = rep(p, chunks=min(p.chunks, p.units(b, h, w)))
+        if p.smem_bytes() <= fcv.SMEM_LIMIT:
+            seen.setdefault(dataclasses.astuple(p), p)
+    return list(seen.values())
+
+
+def sweep_k5_fma(cs, b: int, gen, hw, dtype, top: int = 5) -> dict:
+    """The FMA loop's plans around the chosen one (``_fma_neighbours``) at
+    the cells of a decode at input hw that take it, each timed like
+    time_k5 and checked against the plain version (fp32: 1e-4 of
+    max|dwt|; bf16: one ulp of the max); returns each cell's fastest
+    plans beside the one weight_grad_plan chooses."""
+    from rsis_tpu_torch.ops import fused_cell_vjp as fcv
+    chosen = fcv.weight_grad_plan
+    out = {}
+    for i, (hh, ww, ch, cx), h_prev, x_pad, dg in _k5_cells(
+            cs, b, gen, hw, dtype):
+        mine = chosen(b, hh, ww, ch, cx, dtype)
+        if mine.mma:
+            continue
+        kw = {"cx": cx, "ch": ch}
+        want = fcv.weight_grad_ref(h_prev, x_pad, dg, **kw)
+        tol = (1e-4 if dtype == torch.float32 else cs.BF16_ULP) * (
+            want.float().abs().max().item())
+        rows = []
+        for plan in _fma_neighbours(fcv, mine, b, hh, ww):
+            fcv.weight_grad_plan = lambda *a, plan=plan: plan
+            try:
+                err = cs.max_err(fcv.weight_grad_rowmajor(
+                    h_prev, x_pad, dg, **kw), want)
+                ms = cs.graph_ms(lambda: fcv.weight_grad_rowmajor(
+                    h_prev, x_pad, dg, **kw), iters=10)
+            finally:
+                fcv.weight_grad_plan = chosen
+            if err > tol:
+                raise SystemExit(f"K5 fma cell{i} {plan}: error {err} "
+                                 f"over {tol}")
+            rows.append((ms, dataclasses.astuple(plan)))
+        rows.sort()
+        mine_ms = [ms for ms, p in rows
+                   if p == dataclasses.astuple(mine)][0]
+        out[i] = {"chosen": dataclasses.astuple(mine), "chosen_ms": mine_ms,
+                  "best": rows[:top], "plans": len(rows), "all": rows}
+        print(f"K5 fma sweep cell{i} B={b} {dtype}: {len(rows)} plans; "
+              f"chosen {dataclasses.astuple(mine)} {mine_ms:.4f} ms "
+              f"({mine_ms / rows[0][0] - 1:+.1%} of the fastest); fastest "
               + "; ".join(f"{p} {ms:.4f}" for ms, p in rows[:top]),
               flush=True)
     return out
@@ -788,6 +888,9 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time every tensor-core plan of K5 per cell at "
                     "each --k5-batch")
+    ap.add_argument("--fma-sweep", action="store_true",
+                    help="time the FMA loop's plans of K5 per cell at the "
+                    "Pascal recipe's geometry (fp32, B=28)")
     ap.add_argument("--k3", action="store_true")
     ap.add_argument("--k3-sweep", action="store_true",
                     help="time every tensor-core plan of K3 per cell at "
@@ -832,8 +935,17 @@ def main() -> int:
             for kind in args.cell_sweep or ("k1", "k4", "k8")}
     if args.k5:
         result["k5"] = {b: time_k5(cs, b, gen) for b in args.k5_batch}
+        result["k5_fp32"] = time_k5(cs, cs.PASCAL_BATCH, gen, cs.PASCAL_HW,
+                                    torch.float32)
+        result["k5_leaves"] = {b: time_k5(cs, b, gen, cs.LEAVES_HW)
+                               for b in (2, cs.LEAVES_BATCH)}
     if args.sweep:
         result["sweep"] = {b: sweep_k5(cs, b, gen) for b in args.k5_batch}
+    if args.fma_sweep:
+        result["fma_sweep"] = sweep_k5_fma(cs, cs.PASCAL_BATCH, gen,
+                                           cs.PASCAL_HW, torch.float32)
+        result["fma_sweep_leaves"] = sweep_k5_fma(
+            cs, cs.LEAVES_BATCH, gen, cs.LEAVES_HW, torch.bfloat16)
     if args.k3:
         result["k3"] = {b: time_k3(cs, b, gen) for b in args.k5_batch}
     if args.k3_sweep:

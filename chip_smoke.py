@@ -201,6 +201,9 @@ STEP_LOSS_BF16_REL = 1e-3          # bf16 train step's loss vs plain
 K5_EDGE_GEOMS = [((6, 24, 8, 0), 1), ((10, 40, 8, 8), 2),
                  ((11, 48, 16, 8), 1), ((6, 24, 16, 16), 1),
                  ((9, 40, 32, 16), 2)]
+# K5's narrowest cells (FMA loop only): C of 1 and 2, with and without x
+# channels, as decoders of hidden size 16 and 32 have them
+K5_NARROW_GEOMS = [((8, 12, 2, 4), 2), ((5, 9, 1, 2), 1), ((7, 16, 2, 0), 3)]
 # K3's edge shapes ((H, W, C, Cx), B; Cin = 4C, Cout = Cx + C): each warp
 # tile, split, ring depth and weight staging of its plan, H and W off the
 # unit, W below one unit, B=1, Cx=0, C=8 (Cout 8 and 24), several output
@@ -272,6 +275,8 @@ TRAIN_HW = (256, 512)              # the train step's input (imsize 256)
 LEAVES_HW = (400, 400)             # the CVPPP recipe's input (imsize 400)
 LEAVES_CLASSES = 2
 LEAVES_BATCH = 256                 # the CVPPP inference benchmark's batch
+PASCAL_HW = (256, 256)             # the Pascal recipe's input (imsize 256)
+PASCAL_BATCH = 28                  # and its batch (fp32: K5's FMA loop)
 PARALLEL_TIMEOUT = 600             # phase 4d's ranks, seconds
 TRAIN_ITERS = 3                    # timed train steps after the warm-up
 # the JAX train bench's augmentation ranges; the zoom is zoom_range_for's
@@ -821,10 +826,12 @@ def time_k1_cells(geoms, b, gen, label="") -> dict:
     return out
 
 
-def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
+def check_backward_kernels(cell_geoms, b, gen, k3_batches=(),
+                           k5_cells=()) -> dict:
     """K4, K5 and K3 against their plain versions at the train step's
     shapes, fp32 and bf16 (K3 also at the five cells at k3_batches, whose
-    launch plans differ). Returns the largest bf16 error of each."""
+    launch plans differ; K5 also at k5_cells, (geoms, batch, dtype)).
+    Returns the largest bf16 error of each."""
     from rsis_tpu_torch.ops import fused_cell_vjp as fcv
     errs = {"k3": 0.0, "k4": 0.0, "k5": 0.0}
     # the five cells, then widths that are not multiples of 8 (FMA loops),
@@ -872,8 +879,9 @@ def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
                                                   dtype))
         # K5 at the edges of its plan: H and W not multiples of the unit's
         # rows and columns, W below one unit, B=1, Cx=0 and the narrowest
-        # widths of the tensor-core loop, each of its four warp tiles
-        for geom, bb in K5_EDGE_GEOMS:
+        # widths of the tensor-core loop, each of its four warp tiles; then
+        # the narrowest cells of the FMA loop
+        for geom, bb in K5_EDGE_GEOMS + K5_NARROW_GEOMS:
             hh, ww, ch, cx = geom
             h_prev = torch.randn(bb, hh, ch, ww, generator=gen,
                                  device="cuda").to(dtype)
@@ -887,18 +895,32 @@ def check_backward_kernels(cell_geoms, b, gen, k3_batches=()) -> dict:
             err = check_k5(h_prev, x_pad, dg, geom, bb, dtype)
             if dtype == torch.bfloat16:
                 errs["k5"] = max(errs["k5"], err)
+    # K5 alone at other recipes' cells: the Pascal recipe's in fp32, the
+    # CVPPP recipe's in bf16 (widths 13-100: the FMA loop)
+    for geoms, bb, dtype in k5_cells:
+        for geom in geoms:
+            ops, (dh, dc) = bwd_inputs(geom, bb, dtype, gen)
+            kw = {"cx": geom[3], "ch": geom[2]}
+            dg = fcv.cell_backward_dgates_ref(*ops, dh, dc, **kw)[0]
+            err = check_k5(ops[0], ops[1], dg, geom, bb, dtype)
+            if dtype == torch.bfloat16:
+                errs["k5"] = max(errs["k5"], err)
     return errs
 
 
 def check_k5(h_prev, x_pad, dg, geom, b, dtype) -> float:
     """K5 against its plain version (fp32: 1e-4 of max|dwt|, a sum of up
     to 1M products; bf16: one ulp of the max), launched twice on the same
-    inputs with bit-identical results. Returns the bf16 error (0 for
-    fp32)."""
+    inputs with bit-identical results, both counted in
+    ``weight_grad_rowmajor.fma_launches`` exactly where the plan takes the
+    FMA loop (every fp32 launch, no bf16 one with C, Cx and W multiples of
+    8). Returns the bf16 error (0 for fp32)."""
     from rsis_tpu_torch.ops import fused_cell_vjp as fcv
     kw = {"cx": geom[3], "ch": geom[2]}
+    fma = fcv.weight_grad_rowmajor.fma_launches
     got = fcv.weight_grad_rowmajor(h_prev, x_pad, dg, **kw)
     again = fcv.weight_grad_rowmajor(h_prev, x_pad, dg, **kw)
+    fma = fcv.weight_grad_rowmajor.fma_launches - fma
     want = fcv.weight_grad_ref(h_prev, x_pad, dg, **kw)
     torch.cuda.synchronize()
     plan = fcv.weight_grad_plan(b, geom[0], geom[1], geom[2], geom[3],
@@ -907,12 +929,19 @@ def check_k5(h_prev, x_pad, dg, geom, b, dtype) -> float:
     name = f"K5 {geom} B={b} {tag} " + (
         f"(mma, {plan.block_m}x{plan.block_c} tile, {plan.rows}x{plan.tw} "
         f"unit, {plan.chunks} chunks)" if plan.mma else
-        f"(fma, {plan.chunks} chunks)")
+        f"(fma, {plan.block_m}x{plan.block_c} tile, {plan.groups} groups, "
+        f"{plan.rows}x{plan.tw} unit, {plan.stages} stages, {plan.chunks} "
+        f"chunks)")
     err = max_err(got, want)
     scale = want.float().abs().max().item()
     check(name, err, tol_for(dtype, want, FP32_TOL * scale))
     if not torch.equal(got, again):
         raise SystemExit(f"{name}: two launches on the same inputs differ")
+    aligned = (dtype == torch.bfloat16 and geom[1] % 8 == 0
+               and geom[2] % 8 == 0 and geom[3] % 8 == 0)
+    if fma != (0 if aligned else 2) or plan.mma != aligned:
+        raise SystemExit(f"{name}: {fma} of 2 launches counted in "
+                         f"fma_launches")
     return err if dtype == torch.bfloat16 else 0.0
 
 
@@ -1321,6 +1350,7 @@ def train_phase(args, out_dir) -> dict:
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    fma = counters["weight_grad_rowmajor"].fma_launches
     torch.cuda.reset_peak_memory_stats()
     losses = []
     t0 = time.perf_counter()
@@ -1330,6 +1360,7 @@ def train_phase(args, out_dir) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_ITERS * 1e3
     launches = {k: fn.launches for k, fn in counters.items()}
+    fma = counters["weight_grad_rowmajor"].fma_launches - fma
     losses = [loss0] + [x.item() for x in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     img_s = b / (step_ms / 1e3)
@@ -1348,6 +1379,9 @@ def train_phase(args, out_dir) -> dict:
             "warp_by_coefficients": n}
     if launches != want:
         raise SystemExit(f"train launch counts {launches} != expected {want}")
+    if fma:   # bf16 at hidden 128: every K5 launch on the tensor cores
+        raise SystemExit(f"{fma} K5 launches of the bf16 step took the FMA "
+                         f"loop")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"the train loss does not fall: {losses}")
     profile = None
@@ -3226,11 +3260,13 @@ def recipe_train(name: str, extra: list, seed: int) -> dict:
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    fma = counters["weight_grad_rowmajor"].fma_launches
     t0 = time.perf_counter()
     state, text = run_quiet(lambda: recipes.run(name, extra))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    fma = counters["weight_grad_rowmajor"].fma_launches - fma
     d = model_dir(config_from_args(recipes.argv(name, extra)))
     cfg = Config.load(os.path.join(d, "args.json"))
     if not cfg.log_term:
@@ -3268,6 +3304,11 @@ def recipe_train(name: str, extra: list, seed: int) -> dict:
     idle = {k for k, n in launches.items() if n == 0}
     if idle != (set() if cfg.augment else {"warp_by_coefficients"}):
         faults.append(f"launches {launches} (augment {cfg.augment})")
+    # fp32, as the recipes train: every K5 launch takes the FMA loop
+    if cfg.compute_dtype == "float32" and (
+            fma != launches["weight_grad_rowmajor"]):
+        faults.append(f"{fma} of {launches['weight_grad_rowmajor']} K5 "
+                      f"launches in fma_launches")
     if faults:
         for line in text.splitlines()[-30:]:
             log(f"  | {line}")
@@ -3671,8 +3712,10 @@ def main() -> int:
                          + (TRAIN_HW[1] // 2,)], gen)
     k8_err = check_clstm(k8_geoms, sorted({32, 4, b}, reverse=True), gen)
     log(f"backward kernel checks at the train step's shapes, B={tb}:")
-    bwd_err = check_backward_kernels(train_geoms, tb, gen,
-                                     k3_batches=sorted({b, 8, 32}))
+    bwd_err = check_backward_kernels(
+        train_geoms, tb, gen, k3_batches=sorted({b, 8, 32}),
+        k5_cells=[(concat_geoms(*PASCAL_HW, widths), PASCAL_BATCH,
+                   torch.float32), (leaves_geoms[:4], 2, torch.bfloat16)])
     bwd_err["k4"] = max(bwd_err["k4"], k4_edge_err)
     lap_err = check_lap(gen)
     cell_bwd_ulps = check_cell_backward(train_geoms, tb, gen)

@@ -49,8 +49,31 @@
 //     eight 32 x 16 warps and 128-pixel units at cells 0-2, 64 x 48 and
 //     256 pixels at cell 3, the whole 32 x 24 gradient in six 16 x 8
 //     warps, two blocks an SM, at cell 4.
-// Everything else (fp32, widths not multiples of 8) runs an fp32 FMA loop
-// over 16 x 16 output tiles into the same partials.
+//
+// Everything else (fp32; bf16 where C, Cx or W is not a multiple of 8)
+// runs a register-tiled fp32 FMA loop into the same partials. What bounds
+// it: the operations at the card's 67 TFLOP/s of fp32 FMA. At the Pascal
+// recipe's cells (256x256 input, hidden 128, B = 28) cells 1-4 are 6.34
+// GFLOP each and cell 0 2.1, 0.41 ms a decode step, against 1-100 MB of
+// operands (0.03 ms at most). So every instruction that is not an FMA
+// costs time:
+//   - A block owns Mb gate rows x Cb channels x 9 taps and stages each
+//     unit of `rows` x `tw` pixels once for all nine taps: dg's rows and
+//     the (rows + 2) x (tw + 2) halo of its channels, in fp32 at their
+//     pixel and padded column, so a tap is an offset into the halo.
+//   - Staging is asynchronous: a ring of 2-3 units filled by cp.async
+//     (16-byte copies of dg's rows where W % 4 == 0, 4-byte copies of the
+//     halo at any phase; bf16 is loaded and converted instead), the index
+//     math done once per copy by the Walk counters.
+//   - Each thread keeps 8 gate rows x 2 channels x 9 taps = 144
+//     accumulators and per 4-pixel quad reads 8 + 6 x 2 = 20 float4 from
+//     shared memory for 576 FMAs.
+//   - Small cells split a block's threads into pixel groups that take
+//     every groups-th quad; their tiles are added in group order at the
+//     end. Chunks as above, so two launches give the same bits.
+//   - The tile, groups, unit, ring and chunks come from weight_grad_plan,
+//     a fixed rule (chip_k5_step.py --fma-sweep times the plans around
+//     it).
 
 #include <stdint.h>
 
@@ -62,10 +85,8 @@ using rsis::cp_async16;
 using rsis::cp_async_commit;
 using rsis::cp_async_wait;
 using rsis::from_f;
-using rsis::kThreads;
 using rsis::ldmatrix_x4_trans;
 using rsis::stmatrix_x4_trans;
-using rsis::to_f;
 using rsis::Walk;
 using bf16 = __nv_bfloat16;
 
@@ -350,72 +371,278 @@ dwt_mma_kernel(const bf16* __restrict__ h_prev,
         }
 }
 
-// fp32 FMA: block = a 16 x 16 tile of (gate row, packed column) and one
-// chunk of pixels, 64 pixels staged at a time; thread (ty, tx) owns one
-// entry.
+// ---- the FMA loop (fp32, and bf16 where C, Cx or W is not a multiple of 8)
+
+// 4 bytes to shared memory, from src when `bytes` is 4, else zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// One staged element, as fp32 (0 where !ok): fp32 by an asynchronous
+// copy, bf16 loaded and converted on the spot.
+__device__ __forceinline__ void stage_one(float* dst, const float* src,
+                                          bool ok) {
+  cp_async4(dst, src, ok ? 4 : 0);
+}
+__device__ __forceinline__ void stage_one(float* dst, const bf16* src,
+                                          bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.0f;
+}
+
+// The FMA loop's thread tile: kTm gate rows x kTc channels x 9 taps, 144
+// accumulators, so one block of at most 256 threads an SM.
+constexpr int kTm = 8;
+constexpr int kTc = 2;
+
+// The host's plan of an FMA launch: tm x tc threads a pixel group,
+// `groups` pixel groups a block, units of `rows` x `tw` output pixels, a
+// ring of `stages` units, `chunks` pixel chunks.
+struct FmaPlan {
+  int tm, tc, groups, rows, tw, stages, chunks;
+};
+
+// Shared memory of one FMA block, in floats: a ring of `stages` units,
+// each dg[rows][mb][ds] (pixel x at x) and the halo[cb][cs] of rows + 2
+// padded rows of hs floats (padded column j at j); at the end the pixel
+// groups' tiles reuse it. ds / 4 and cs / 4 are odd, so the float4 reads
+// of 8 neighbouring gate rows or channels at one pixel hit 8 different
+// groups of 4 banks.
+struct FmaSmem {
+  int ds, hs, cs, dgn, stage, reduce;
+  __host__ __device__ FmaSmem(const FmaPlan& p, int mb, int cb) {
+    ds = p.tw / 4 % 2 ? p.tw : p.tw + 4;
+    hs = p.tw + 4;   // padded columns 0 .. tw + 1 staged, read to tw + 3
+    cs = (p.rows + 2) * hs;
+    if (cs / 4 % 2 == 0) cs += 4;
+    dgn = p.rows * mb * ds;
+    stage = dgn + cb * cs;
+    reduce = (p.groups - 1) * mb * cb * 9;
+  }
+  __host__ __device__ size_t bytes(int stages) const {
+    const int n = stages * stage;
+    return (size_t)(n > reduce ? n : reduce) * sizeof(float);
+  }
+};
+
+// fp32 FMA, register-tiled: block (output tile, chunk) owns mb = kTm tm
+// gate rows x cb = kTc tc input channels x 9 taps and walks its chunk's
+// units in order. Thread (cg, rg) of pixel group kg owns gate rows
+// rg + i tm and channels cg + j tc; for each 4-pixel quad of its group it
+// reads kTm float4 of dg and, per channel and dy, two float4 of the halo
+// row (the 6 padded columns the quad's three dx taps read), then does
+// kTm x kTc x 9 x 4 FMAs. The pixel groups' tiles are added in group
+// order at the end, so the sum is the same on every run.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dwt_fma_kernel(const T* __restrict__ h_prev, const T* __restrict__ x_pad,
-               const T* __restrict__ dg, float* __restrict__ ws, int B,
-               int H, int W, int C, int Cx, int n_mt, int n_kt,
-               int n_chunks) {
-  __shared__ float dgs[16][65];
-  __shared__ float taps[64][17];
+__global__ void __launch_bounds__(256, 1)
+dwt_tiled_kernel(const T* __restrict__ h_prev, const T* __restrict__ x_pad,
+                 const T* __restrict__ dg, float* __restrict__ ws, int B,
+                 int H, int W, int C, int Cx, FmaPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
   const int cn = Cx + C;
   const int M = 4 * C;
   const int K = 9 * cn;
-  const int mt = blockIdx.x % n_mt;
-  const int kt = (blockIdx.x / n_mt) % n_kt;
-  const int chunk = blockIdx.x / (n_mt * n_kt);
-  const long long P = (long long)B * H * W;
-  const long long p_begin = P * chunk / n_chunks;
-  const long long p_end = P * (chunk + 1) / n_chunks;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc = 0.0f;
-  for (long long pb = p_begin; pb < p_end; pb += 64) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 16 * 64; i += blockDim.x) {
-      const int p = i % 64;
-      const int r = i / 64;
-      const long long pix = pb + p;
-      const int m = mt * 16 + r;
-      float dv = 0.0f;
-      float tv = 0.0f;
-      const int k = kt * 16 + r;
-      if (pix < p_end) {
-        const int x = (int)(pix % W);
-        const int y = (int)((pix / W) % H);
-        const int b = (int)(pix / ((long long)W * H));
-        if (m < M) dv = to_f(dg[((size_t)(b * H + y) * M + m) * W + x]);
-        if (k < K) {
-          int tap, ch;
-          if (k < 9 * Cx) {
-            tap = k / Cx;
-            ch = k % Cx;
-            tv = to_f(x_pad[((size_t)(b * (H + 2) + y + tap / 3) * Cx + ch) *
-                                (W + 2) +
-                            x + tap % 3]);
-          } else {
-            tap = (k - 9 * Cx) / C;
-            ch = (k - 9 * Cx) % C;
-            const int iy = y + tap / 3 - 1;
-            const int ix = x + tap % 3 - 1;
-            if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-              tv = to_f(h_prev[((size_t)(b * H + iy) * C + ch) * W + ix]);
-          }
+  const int mb = kTm * p.tm;
+  const int cb = kTc * p.tc;
+  const int R = p.rows;
+  const int tw = p.tw;
+  const FmaSmem L(p, mb, cb);
+
+  const int n_mt = (M + mb - 1) / mb;
+  const int n_ct = (cn + cb - 1) / cb;
+  const int m0 = (blockIdx.x % n_mt) * mb;
+  const int c0 = (blockIdx.x / n_mt % n_ct) * cb;
+  const int chunk = blockIdx.x / (n_mt * n_ct);
+  const int n_xt = (W + tw - 1) / tw;
+  const int n_rg = (H + R - 1) / R;
+  const long long n_units = (long long)B * n_rg * n_xt;
+  const int u_begin = (int)(n_units * chunk / p.chunks);
+  const int n_my = (int)(n_units * (chunk + 1) / p.chunks) - u_begin;
+
+  const int nt = p.tm * p.tc;        // threads of a pixel group
+  const int lt = threadIdx.x % nt;
+  const int cg = lt % p.tc;
+  const int rg = lt / p.tc;
+  const int kg = threadIdx.x / nt;   // the pixel group
+
+  auto unit_origin = [&](int u, int& b, int& y0, int& x0) {
+    x0 = (u % n_xt) * tw;
+    y0 = (u / n_xt % n_rg) * R;
+    b = u / (n_xt * n_rg);
+  };
+
+  // unit u into ring slot s: dg's rows (16-byte copies where fp32 rows
+  // are 16-byte aligned, W % 4 == 0, else element by element) and the
+  // halo of the block's channels, x_pad's ring as given and h zero
+  // outside the image, element by element at its padded column; zero
+  // past the image, M and Cx + C
+  const bool vec = sizeof(T) == 4 && W % 4 == 0;
+  const int vw = vec ? 4 : 1;
+  const int qd = tw / vw;
+  const Walk w_dg(threadIdx.x, blockDim.x, qd, mb);
+  const Walk w_h(threadIdx.x, blockDim.x, tw + 2, R + 2);
+  auto fetch = [&](int u, int s) {
+    int b, y0, x0;
+    unit_origin(u, b, y0, x0);
+    float* dgs = smem + (size_t)s * L.stage;
+    float* hal = dgs + L.dgn;
+    Walk w = w_dg;
+    for (int i = threadIdx.x; i < R * mb * qd; i += blockDim.x, w.next()) {
+      const int y = y0 + w.c;
+      const int m = m0 + w.b;
+      const int x = x0 + vw * w.a;
+      const bool ok = y < H && m < M && x < W;
+      const T* src = ok ? dg + ((size_t)(b * H + y) * M + m) * W + x : dg;
+      float* dst = dgs + (w.c * mb + w.b) * L.ds + vw * w.a;
+      if (vec)
+        cp_async16(dst, src, ok ? 16 : 0);
+      else
+        stage_one(dst, src, ok);
+    }
+    w = w_h;
+    for (int i = threadIdx.x; i < cb * (R + 2) * (tw + 2);
+         i += blockDim.x, w.next()) {
+      const int ch = c0 + w.c;
+      const int py = y0 + w.b;   // padded row and column
+      const int px = x0 + w.a;
+      const T* src = dg;
+      bool ok = false;
+      if (ch < Cx) {
+        ok = py < H + 2 && px < W + 2;
+        if (ok)
+          src = x_pad + ((size_t)(b * (H + 2) + py) * Cx + ch) * (W + 2) + px;
+      } else if (ch < cn) {
+        ok = py >= 1 && py <= H && px >= 1 && px <= W;
+        if (ok)
+          src = h_prev + ((size_t)(b * H + py - 1) * C + ch - Cx) * W + px - 1;
+      }
+      stage_one(hal + w.c * L.cs + w.b * L.hs + w.a, src, ok);
+    }
+  };
+
+  float acc[kTm][kTc][9];
+#pragma unroll
+  for (int i = 0; i < kTm; ++i)
+#pragma unroll
+    for (int j = 0; j < kTc; ++j)
+#pragma unroll
+      for (int t = 0; t < 9; ++t) acc[i][j][t] = 0.0f;
+
+  // this group's quads of unit u (row r, pixels 4 x4 .. 4 x4 + 3): kg,
+  // kg + groups, ... in row order; pixels past the image read dg's zeros
+  auto compute = [&](int s, int u) {
+    int b, y0, x0;
+    unit_origin(u, b, y0, x0);
+    const float* dgs = smem + (size_t)s * L.stage;
+    const float* hal = dgs + L.dgn;
+    const int r_end = min(R, H - y0);
+    const int nqx = (min(tw, W - x0) + 3) / 4;
+    const int dr = p.groups / nqx;
+    const int dq = p.groups % nqx;
+    int r = kg / nqx;
+    int x4 = kg % nqx;
+    while (r < r_end) {
+      float a[kTm][4];
+#pragma unroll
+      for (int i = 0; i < kTm; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            dgs + (r * mb + rg + i * p.tm) * L.ds + 4 * x4);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+        a[i][2] = v.z;
+        a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < kTc; ++j) {
+        const float* hp = hal + (cg + j * p.tc) * L.cs + r * L.hs + 4 * x4;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const float4 lo = *reinterpret_cast<const float4*>(hp + dy * L.hs);
+          const float4 hi =
+              *reinterpret_cast<const float4*>(hp + dy * L.hs + 4);
+          const float hv[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int i = 0; i < kTm; ++i)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                acc[i][j][3 * dy + dx] =
+                    fmaf(a[i][q], hv[q + dx], acc[i][j][3 * dy + dx]);
         }
       }
-      dgs[r][p] = dv;
-      taps[p][r] = tv;
+      r += dr;
+      x4 += dq;
+      if (x4 >= nqx) {
+        x4 -= nqx;
+        ++r;
+      }
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int p = 0; p < 64; ++p) acc = fmaf(dgs[ty][p], taps[p][tx], acc);
+  };
+
+  // the ring: unit k waits for its copies, the slot freed by unit k - 1
+  // takes unit k + stages - 1, then unit k is multiplied
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < n_my) fetch(u_begin + s, s);
+    cp_async_commit();
   }
-  const int m = mt * 16 + ty;
-  const int k = kt * 16 + tx;
-  if (m < M && k < K) ws[((size_t)chunk * M + m) * K + k] = acc;
+  for (int k = 0; k < n_my; ++k) {
+    if (p.stages == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const int next = k + p.stages - 1;
+    if (next < n_my) fetch(u_begin + next, next % p.stages);
+    cp_async_commit();
+    compute(k % p.stages, u_begin + k);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // groups 1 .. groups - 1 leave their tiles in shared memory, group 0
+  // adds them in group order and writes the chunk's partial
+  constexpr int E = kTm * kTc * 9;
+  if (kg > 0) {
+    float* red = smem + (size_t)(kg - 1) * E * nt + lt;
+#pragma unroll
+    for (int i = 0; i < kTm; ++i)
+#pragma unroll
+      for (int j = 0; j < kTc; ++j)
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+          red[((i * kTc + j) * 9 + t) * nt] = acc[i][j][t];
+  }
+  __syncthreads();
+  if (kg > 0) return;
+  for (int g = 1; g < p.groups; ++g) {
+    const float* red = smem + (size_t)(g - 1) * E * nt + lt;
+#pragma unroll
+    for (int i = 0; i < kTm; ++i)
+#pragma unroll
+      for (int j = 0; j < kTc; ++j)
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+          acc[i][j][t] += red[((i * kTc + j) * 9 + t) * nt];
+  }
+  float* out = ws + (size_t)chunk * M * K;
+#pragma unroll
+  for (int i = 0; i < kTm; ++i) {
+    const int m = m0 + rg + i * p.tm;
+#pragma unroll
+    for (int j = 0; j < kTc; ++j) {
+      const int ch = c0 + cg + j * p.tc;
+      if (m < M && ch < cn) {
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+          out[(size_t)m * K + packed_col(t, ch, C, Cx)] = acc[i][j][t];
+      }
+    }
+  }
 }
 
 // dwt[i] = sum over chunks c in order of ws[c][i], cast to dwt's dtype;
@@ -459,24 +686,46 @@ cudaError_t launch_mma(const bf16* h_prev, const bf16* x_pad, const bf16* dg,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_fma(const void* h_prev, const void* x_pad, const void* dg,
+                       float* ws, int B, int H, int W, int C, int Cx,
+                       const FmaPlan& p, cudaStream_t s) {
+  const int mb = kTm * p.tm;
+  const int cb = kTc * p.tc;
+  const size_t smem = FmaSmem(p, mb, cb).bytes(p.stages);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dwt_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((4 * C + mb - 1) / mb) *
+                           ((Cx + C + cb - 1) / cb) * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dwt_tiled_kernel<T><<<(unsigned)blocks, p.tm * p.tc * p.groups, smem, s>>>(
+      static_cast<const T*>(h_prev), static_cast<const T*>(x_pad),
+      static_cast<const T*>(dg), ws, B, H, W, C, Cx, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // h_prev (B, H, C, W), x_pad (B, H+2, Cx, W+2) or null when Cx == 0,
 // dg (B, H, 4C, W) -> dwt (4C, 9(Cx+C)) in dg's dtype; ws holds
 // ws_floats floats, at least chunks * 4C * 9(Cx+C). dtype: 0 = float32,
-// 1 = bfloat16. The plan (weight_grad_plan): mma = 0 runs the FMA loop in
-// `chunks` pixel chunks (the other fields unused); mma = 1 the tensor-core
-// loop (bfloat16, C, Cx and W multiples of 8) with warp tiles of 16 wa
-// gate rows x 8 wc channels, wm x wcn warps, units of `rows` x `tw`
-// pixels and a ring of `stages` units. Returns the first failing launch's
-// cudaError_t, 0 on success; cudaErrorInvalidValue for a plan that does
-// not fit the shapes.
+// 1 = bfloat16. The plan (weight_grad_plan), units of `rows` x `tw`
+// pixels, a ring of `stages` units and `chunks` pixel chunks either way:
+// mma = 1 the tensor-core loop (bfloat16, C, Cx and W multiples of 8) with
+// warp tiles of 16 wa gate rows x 8 wc channels, wm x wcn warps; mma = 0
+// the FMA loop with tm x tcn threads a pixel group and `groups` groups
+// (at most 256 threads). Returns the first failing launch's cudaError_t, 0 on
+// success; cudaErrorInvalidValue for a plan that does not fit the shapes.
 extern "C" int rsis_weight_grad(const void* h_prev, const void* x_pad,
                                 const void* dg, void* ws, long long ws_floats,
                                 void* dwt, int B, int H, int W, int C, int Cx,
                                 int dtype, int mma, int wa, int wc, int wm,
                                 int wcn, int rows, int tw, int stages,
-                                int chunks, void* stream) {
+                                int chunks, int tm, int tcn, int groups,
+                                void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cx < 0 ||
       (dtype != 0 && dtype != 1) || chunks < 1)
     return (int)cudaErrorInvalidValue;
@@ -507,21 +756,14 @@ extern "C" int rsis_weight_grad(const void* h_prev, const void* x_pad,
     else
       err = launch_mma<2, 2>(hp, xp, gp, w, B, H, W, C, Cx, p, s);
   } else {
-    const int n_mt = (M + 15) / 16;
-    const int n_kt = (9 * cn + 15) / 16;
-    const long long blocks = (long long)n_mt * n_kt * chunks;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (tm < 1 || tcn < 1 || groups < 1 || tm * tcn * groups > 256 ||
+        rows < 1 || tw < 4 || tw % 4 || (stages != 2 && stages != 3))
+      return (int)cudaErrorInvalidValue;
+    const FmaPlan p{tm, tcn, groups, rows, tw, stages, chunks};
     if (dtype == 0)
-      dwt_fma_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
-          static_cast<const float*>(h_prev), static_cast<const float*>(x_pad),
-          static_cast<const float*>(dg), w, B, H, W, C, Cx, n_mt, n_kt,
-          chunks);
+      err = launch_fma<float>(h_prev, x_pad, dg, w, B, H, W, C, Cx, p, s);
     else
-      dwt_fma_kernel<bf16><<<(unsigned)blocks, kThreads, 0, s>>>(
-          static_cast<const bf16*>(h_prev), static_cast<const bf16*>(x_pad),
-          static_cast<const bf16*>(dg), w, B, H, W, C, Cx, n_mt, n_kt,
-          chunks);
-    err = cudaGetLastError();
+      err = launch_fma<bf16>(h_prev, x_pad, dg, w, B, H, W, C, Cx, p, s);
   }
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;

@@ -163,16 +163,24 @@ SMEM_PER_SM = 228 * 1024
 SMEM_LIMIT = 227 * 1024
 
 
+# The FMA loop's thread tile (the kernel's kTm x kTc): 8 gate rows x 2
+# channels x 9 taps, 144 accumulators, so one block of FMA_THREADS an SM.
+FMA_TILE_M, FMA_TILE_C = 8, 2
+FMA_THREADS = 256
+
+
 @dataclasses.dataclass(frozen=True)
 class WeightGradPlan:
     """How ``csrc/weight_grad.cu`` cuts one weight gradient.
 
+    Either way units of ``rows`` output rows x ``tw`` columns, a ring of
+    ``stages`` units, and ``chunks`` pixel chunks that each write an fp32
+    partial of the whole (4C, 9(Cx+C)) gradient, summed in chunk order.
     mma: the tensor-core loop (bf16, C, Cx and W multiples of 8) with warp
     tiles of 16 wa gate rows x 8 wc channels x 9 taps, warps_m x warps_c
-    warps a block, units of ``rows`` output rows x ``tw`` columns and a
-    ring of ``stages`` units; otherwise the FMA loop over 16 x 16 tiles.
-    Either way ``chunks`` pixel chunks each write an fp32 partial of the
-    whole (4C, 9(Cx+C)) gradient, summed in chunk order."""
+    warps a block. Otherwise the FMA loop: thread tiles of FMA_TILE_M gate
+    rows x FMA_TILE_C channels x 9 taps, threads_m x threads_c threads a
+    pixel group and ``groups`` groups a block."""
     mma: bool
     chunks: int
     wa: int = 0
@@ -182,32 +190,97 @@ class WeightGradPlan:
     rows: int = 0
     tw: int = 0
     stages: int = 0
+    threads_m: int = 0
+    threads_c: int = 0
+    groups: int = 0
 
     @property
     def block_m(self) -> int:
+        if not self.mma:
+            return FMA_TILE_M * self.threads_m
         return 16 * self.wa * self.warps_m
 
     @property
     def block_c(self) -> int:
+        if not self.mma:
+            return FMA_TILE_C * self.threads_c
         return 8 * self.wc * self.warps_c
 
+    @property
+    def threads(self) -> int:
+        if not self.mma:
+            return self.threads_m * self.threads_c * self.groups
+        return 32 * self.warps_m * self.warps_c
+
     def smem_bytes(self) -> int:
-        """Dynamic shared memory of one block of the tensor-core loop (the
+        """Dynamic shared memory of one block. The tensor-core loop (the
         kernel's ``Smem``): the ring of raw halo and dg rows, the
-        transposed halo and 16 bytes of trash."""
+        transposed halo and 16 bytes of trash. The FMA loop
+        (``FmaSmem``): the ring of fp32 dg rows and halos, or the pixel
+        groups' tiles at the end where they take more."""
+        mb, cb = self.block_m, self.block_c
+        if not self.mma:
+            *_, stage, reduce = self.fma_layout()
+            return 4 * max(self.stages * stage, reduce)
         rs, ds, twp = self.tw + 24, self.tw + 8, self.tw + 2
-        cb = self.block_c
         cs = cb + (0 if (cb // 8) % 2 else 8)
         ring = self.stages * ((self.rows + 2) * cb * rs
                               + self.rows * self.block_m * ds)
         return 2 * (ring + (self.rows + 2) * twp * cs + 8)
 
+    def fma_layout(self) -> tuple:
+        """The FMA loop's shared memory (the kernel's ``FmaSmem``), in
+        floats: the dg row, halo row and halo channel strides, a slot's dg
+        rows, a ring slot, and the pixel groups' tiles that reuse the ring
+        at the end. ds / 4 and cs / 4 are odd, so float4 reads of 8
+        neighbouring gate rows or channels at one pixel hit 8 different
+        groups of 4 banks."""
+        ds = self.tw if self.tw // 4 % 2 else self.tw + 4
+        hs = self.tw + 4   # padded columns 0 .. tw + 1, read to tw + 3
+        cs = (self.rows + 2) * hs
+        cs += 0 if cs // 4 % 2 else 4
+        dgn = self.rows * self.block_m * ds
+        return (ds, hs, cs, dgn, dgn + self.block_c * cs,
+                (self.groups - 1) * self.block_m * self.block_c * 9)
+
+    def tiles(self, ch: int, cx: int) -> int:
+        return (-(-4 * ch // self.block_m)) * (-(-(cx + ch) // self.block_c))
+
     def workspace_floats(self, ch: int, cx: int) -> int:
         return self.chunks * 4 * ch * 9 * (cx + ch)
 
     def units(self, b: int, h: int, w: int) -> int:
-        """Units of work of the tensor-core loop."""
+        """Units of work of a launch."""
         return b * -(-h // self.rows) * -(-w // self.tw)
+
+
+def _pow2(n: int) -> int:
+    """The least power of two at or above n >= 1."""
+    return 1 << (n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def _fma_plan(b: int, h: int, w: int, ch: int, cx: int,
+              dtype: torch.dtype) -> WeightGradPlan:
+    m, cn = 4 * ch, cx + ch
+    thm = min(16, _pow2(-(-m // FMA_TILE_M)))
+    thc = min((16, 8, 4, 2, 1), key=lambda t: -(-cn // (FMA_TILE_C * t)) * t)
+    groups = FMA_THREADS // (thm * thc)
+    rows = min(8, h)
+    px = max(64, 32 * groups) // (1 if dtype == torch.float32 else 2)
+    tw = min(128, _pow2(max(4, w)), _pow2(-(-px // rows)))
+    plan = WeightGradPlan(False, 1, rows=rows, tw=tw, stages=3,
+                          threads_m=thm, threads_c=thc, groups=groups)
+    chunks = max(1, SM_COUNT // plan.tiles(ch, cx))
+    while ((dataclasses.replace(plan, stages=2).smem_bytes() > SMEM_LIMIT
+            or plan.units(b, h, w) < chunks)
+           and (plan.tw > 4 or plan.rows > 1)):
+        plan = (dataclasses.replace(plan, tw=plan.tw // 2) if plan.tw > 4
+                else dataclasses.replace(plan, rows=plan.rows // 2))
+    if plan.smem_bytes() > SMEM_LIMIT:
+        plan = dataclasses.replace(plan, stages=2)
+    return dataclasses.replace(plan,
+                               chunks=min(plan.units(b, h, w), chunks))
 
 
 def weight_grad_plan(b: int, h: int, w: int, ch: int, cx: int,
@@ -229,14 +302,25 @@ def weight_grad_plan(b: int, h: int, w: int, ch: int, cx: int,
       - chunks that balance a block's products against the write and read
         of its fp32 partial (sqrt(operations per tile / partial bytes)),
         at most one wave of blocks and one unit per chunk.
-    FMA: 16 x 16 tiles and enough chunks for about two blocks per SM."""
+    FMA (everything else), one block of FMA_THREADS an SM:
+      - threads_m: the fewest thread rows, up to 16, whose tiles cover
+        4ch; threads_c: the power of two up to 16 that pads cx + ch the
+        least (then the larger); the rest of the threads are pixel groups;
+      - units of 8 rows (or h) x tw: 8 quads a pixel group and at least
+        64 pixels in fp32, half that in bf16 (staged synchronously, it
+        runs faster on units half the size), no wider than the image's
+        power of two nor 128, halved (columns down to 4, then rows) until
+        a ring of 2 fits and the launch has a unit for each chunk; the
+        deepest ring (3, else 2 units) that fits;
+      - chunks for one wave of blocks, at most one unit each.
+    Timed on the card against the plans around it (chip_k5_step.py
+    --fma-sweep): within 2.7% of the fastest at each of the Pascal
+    recipe's cells (fp32) and the CVPPP recipe's edge cells (bf16,
+    B=256)."""
     m, cn = 4 * ch, cx + ch
     if not (dtype == torch.bfloat16 and ch % 8 == 0 and cx % 8 == 0
             and w % 8 == 0):
-        tiles = -(-m // 16) * -(-9 * cn // 16)
-        units = -(-b * h * w // 256)
-        return WeightGradPlan(mma=False, chunks=max(1, min(
-            -(-2 * SM_COUNT // tiles), units)))
+        return _fma_plan(b, h, w, ch, cx, dtype)
     best = None
     for wa in (1, 2):
         for wc in (1, 2):
@@ -286,7 +370,7 @@ def _dwt_lib() -> ctypes.CDLL:
     lib = _build.load("weight_grad")
     lib.rsis_weight_grad.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
-        + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 18 + [ctypes.c_void_p])
     lib.rsis_weight_grad.restype = ctypes.c_int
     return lib
 
@@ -297,10 +381,12 @@ def weight_grad_rowmajor(h_prev, x_pad, dg, *, cx: int,
     dtype (summed in fp32).
 
     CPU tensors take the plain version. CUDA tensors (float32 or bfloat16,
-    contiguous) launch ``csrc/weight_grad.cu`` as ``weight_grad_plan``
-    cuts it (two passes: chunk partials, then their sum in a fixed order,
-    so the result is the same on every run) and count one launch in
-    ``weight_grad_rowmajor.launches``."""
+    contiguous, 16-byte aligned) launch ``csrc/weight_grad.cu`` as
+    ``weight_grad_plan`` cuts it (two passes: chunk partials, then their
+    sum in a fixed order, so the result is the same on every run) and
+    count one launch in ``weight_grad_rowmajor.launches``, and in
+    ``weight_grad_rowmajor.fma_launches`` where the plan takes the FMA
+    loop."""
     b, h, c_dim, w = h_prev.shape
     if c_dim != ch or tuple(dg.shape) != (b, h, 4 * ch, w):
         raise ValueError(f"h_prev {tuple(h_prev.shape)} / dg "
@@ -317,6 +403,9 @@ def weight_grad_rowmajor(h_prev, x_pad, dg, *, cx: int,
     if dg.device.type != "cuda":
         raise ValueError(f"no kernel for device {dg.device}")
     _kernel_operands("weight gradient", tensors, dg.dtype)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("weight gradient kernel needs 16-byte aligned "
+                         "operands")
     plan = weight_grad_plan(b, h, w, ch, cx, dg.dtype)
     lib = _dwt_lib()
     n_ws = plan.workspace_floats(ch, cx)
@@ -330,15 +419,18 @@ def weight_grad_rowmajor(h_prev, x_pad, dg, *, cx: int,
             dg.data_ptr(), ws.data_ptr(), n_ws, dwt.data_ptr(), b, h, w, ch,
             cx, _DTYPE_CODES[dg.dtype], int(plan.mma), plan.wa, plan.wc,
             plan.warps_m, plan.warps_c, plan.rows, plan.tw, plan.stages,
-            plan.chunks, stream)
+            plan.chunks, plan.threads_m, plan.threads_c, plan.groups,
+            stream)
     if err != 0:
         raise RuntimeError(f"weight gradient kernel launch failed: CUDA "
                            f"error {err}")
     weight_grad_rowmajor.launches += 1
+    weight_grad_rowmajor.fma_launches += not plan.mma
     return dwt
 
 
 weight_grad_rowmajor.launches = 0
+weight_grad_rowmajor.fma_launches = 0
 
 
 # ---- the pullback conv's weight and the whole backward ------------------
